@@ -3,7 +3,9 @@
 Each fused module subclasses its plain counterpart in ``models.blocks``, so
 it owns exactly the same parameters (checkpoints are interchangeable) and
 its ``forward`` is the plain path; ``flat`` is the fused path over the
-kernels ``ops.kernels.dense_stack`` and ``ops.kernels.stencil``.
+kernels ``ops.kernels.dense_stack`` and ``ops.kernels.stencil``, through
+the autograd Functions of ``ops.kernels.flat_grad`` (backward:
+``ops.kernels.stencil_bwd``) when autograd records.
 
 Bundle contract (as in the JAX package, without its lane-flattened
 framing): ``(tensors, scale, mean)`` where ``tensors`` is a tuple of raw
@@ -23,8 +25,7 @@ from misonet_tpu_torch.models.blocks import (
     DeconvBlock,
     DenseBlock,
 )
-from misonet_tpu_torch.ops.kernels.dense_stack import dense_stack
-from misonet_tpu_torch.ops.kernels.stencil import stencil
+from misonet_tpu_torch.ops.kernels.flat_grad import dense_stack_ad, stencil_ad
 from misonet_tpu_torch.ops.stats import stats_to_scale_mean
 
 Bundle = tuple[tuple[torch.Tensor, ...], torch.Tensor, torch.Tensor]
@@ -97,27 +98,37 @@ class DenseBlockFlat(DenseBlock):
     Layer s+1 needs layer s's global statistics, so the partials leave the
     kernel between calls."""
 
+    def _stack(self) -> list[torch.Tensor]:
+        stacks = []
+        for s in range(len(self.convs)):
+            # channel range of source s in the layers' inputs
+            off = 0 if s == 0 else self.in_ch + (s - 1) * self.g1
+            cw = self.in_ch if s == 0 else self.g1
+            stacks.append(torch.cat(
+                [c.weight[:, off : off + cw] for c in self.convs[s:]], dim=0,
+            ))
+        return stacks
+
     def stacked_weights(self) -> list[torch.Tensor]:
         """The ``w_stack`` of each call s: the kernels of layers s..4 over
-        source s's input channels, ``[sum(widths[s:]), c_s, 3, 3]``.  Built
-        once and rebuilt only when a weight is replaced, gets new storage or
-        an in-place update.  Weights made under ``torch.inference_mode`` keep
+        source s's input channels, ``[sum(widths[s:]), c_s, 3, 3]``.
+
+        When autograd records a weight, the stacks are built inside the
+        graph on every call (the ``cat`` splits ``dW_stack`` back into the
+        layers' gradients; the optimizer's in-place step changes the
+        weights each step anyway).  Otherwise they are built once and
+        rebuilt only when a weight is replaced, gets new storage or an
+        in-place update.  Weights made under ``torch.inference_mode`` keep
         no version counter, so for them the stacks are rebuilt on every
         call."""
         weights = [c.weight for c in self.convs]
+        if torch.is_grad_enabled() and any(w.requires_grad for w in weights):
+            return self._stack()
         key = (None if any(w.is_inference() for w in weights) else
                tuple((id(w), w.data_ptr(), w._version) for w in weights))
         if key is None or getattr(self, "_stack_key", None) != key:
             with torch.no_grad():
-                stacks = []
-                for s in range(len(self.convs)):
-                    # channel range of source s in the layers' inputs
-                    off = 0 if s == 0 else self.in_ch + (s - 1) * self.g1
-                    cw = self.in_ch if s == 0 else self.g1
-                    stacks.append(torch.cat(
-                        [c.weight[:, off : off + cw] for c in self.convs[s:]],
-                        dim=0,
-                    ))
+                stacks = self._stack()
             self._stacks, self._stack_key = stacks, key
             # keeps the keyed weights alive, so no other tensor can take
             # their ids or storage while the key stands
@@ -130,7 +141,7 @@ class DenseBlockFlat(DenseBlock):
         acc = None
         for s, (conv, w_stack) in enumerate(
                 zip(self.convs, self.stacked_weights())):
-            y, sums, sqs, acc = dense_stack(
+            y, sums, sqs, acc = dense_stack_ad(
                 src, acc, w_stack, conv.bias, scale, mean,
                 n_fin=self.widths[s],
             )
@@ -145,8 +156,8 @@ class Enc0Flat(ConvBlock):
     statistics), like the reference feeds it to the DenseBlock."""
 
     def flat(self, x: torch.Tensor) -> Bundle:
-        y, _, _ = stencil(x, self.conv.weight, self.conv.bias, None, None,
-                          "enc0")
+        y, _, _ = stencil_ad(x, self.conv.weight, self.conv.bias, None, None,
+                             "enc0")
         return identity_bundle(y)
 
 
@@ -156,8 +167,8 @@ class TrunkDownFlat(ConvBlock):
 
     def flat(self, bundle: Bundle) -> Bundle:
         (x,), scale, mean = bundle
-        y, sums, sqs = stencil(x, self.conv.weight, self.conv.bias, scale,
-                               mean, "down")
+        y, sums, sqs = stencil_ad(x, self.conv.weight, self.conv.bias, scale,
+                                  mean, "down")
         return stats_bundle(y, sums, sqs)
 
 
@@ -167,8 +178,8 @@ class DeconvUpFlat(DeconvBlock):
 
     def flat(self, bundle: Bundle) -> Bundle:
         (x,), scale, mean = bundle
-        y, sums, sqs = stencil(x, self.deconv.weight, self.deconv.bias,
-                               scale, mean, "up")
+        y, sums, sqs = stencil_ad(x, self.deconv.weight, self.deconv.bias,
+                                  scale, mean, "up")
         return stats_bundle(y, sums, sqs)
 
 
@@ -178,5 +189,5 @@ class FinalDeconvFlat(ConvTranspose2dTorch):
 
     def flat(self, bundle: Bundle) -> torch.Tensor:
         (x,), scale, mean = bundle
-        y, _, _ = stencil(x, self.weight, self.bias, scale, mean, "final")
+        y, _, _ = stencil_ad(x, self.weight, self.bias, scale, mean, "final")
         return y

@@ -7,8 +7,10 @@ Complex spectrogram in, complex spectrogram out; inside, complex is handled
 as stacked real channels (all real, then all imaginary) in NCHW.
 
 On a CUDA input the U-Net body at levels 0-4 and their decoder mirrors runs
-fused over the CUDA kernels (``models/flat_dense.py``); elsewhere, and on
-the CPU, the plain modules run.  Both paths use the same parameters.
+fused over the CUDA kernels (``models/flat_dense.py``), forward and, under
+autograd, backward; elsewhere, and on the CPU, the plain modules run.  Both
+paths use the same parameters.  The factories build the model on the card
+unless the caller asks for another device.
 """
 
 from __future__ import annotations
@@ -120,14 +122,6 @@ class MISONet(nn.Module):
         x_cm = torch.cat([mixture.real, mixture.imag], dim=1)
         x_cm = x_cm.to(torch.float32).contiguous()
         flat = resolve_flat(self.cfg.flat_dense, x_cm, nb=nb)
-        if flat and torch.is_grad_enabled() and any(
-            p.requires_grad for p in self.parameters()
-        ):
-            raise NotImplementedError(
-                "the fused CUDA path has no backward yet (stencil_bwd is "
-                "ROADMAP work): run it under torch.no_grad() or "
-                "torch.inference_mode(), or set flat_dense=False to train"
-            )
 
         # --- encoder: levels 0-4 stay raw tensors + statistics when fused
         skips = []
@@ -188,7 +182,7 @@ def _build(cfg, in_channels, num_spks, device, generator) -> MISONet:
 
 
 def make_miso1(cfg: ModelConfig, num_mics: int = 6, num_spks: int = 2, *,
-               device="cpu", generator: torch.Generator | None = None):
+               device="cuda", generator: torch.Generator | None = None):
     """Separation net: C-mic complex mixture -> num_spks sources at the
     reference mic (reference model.py:8-111).  Parameters are drawn from
     ``generator`` (a CPU ``torch.Generator``; seed 0 when None)."""
@@ -196,13 +190,13 @@ def make_miso1(cfg: ModelConfig, num_mics: int = 6, num_spks: int = 2, *,
 
 
 def make_miso2(cfg: ModelConfig, num_mics: int = 6, num_spks: int = 2, *,
-               device="cpu", generator: torch.Generator | None = None):
+               device="cuda", generator: torch.Generator | None = None):
     """Joint enhancement net over mixture + per-speaker MISO1 + BF stacks
     (input channels C + 2*num_spks; reference model.py:166-278)."""
     return _build(cfg, num_mics + 2 * num_spks, num_spks, device, generator)
 
 
-def make_miso3(cfg: ModelConfig, num_mics: int = 6, *, device="cpu",
+def make_miso3(cfg: ModelConfig, num_mics: int = 6, *, device="cuda",
                generator: torch.Generator | None = None):
     """Per-speaker enhancement net over mixture + 1 MISO1 + 1 BF channel
     (input channels C + 2; reference model.py:282-395)."""

@@ -6,8 +6,9 @@ reference on the card), and a plain-int launch counter on the wrapper."""
 
 from misonet_tpu_torch.ops.kernels.dense_stack import dense_stack
 from misonet_tpu_torch.ops.kernels.stencil import stencil
+from misonet_tpu_torch.ops.kernels.stencil_bwd import stencil_bwd
 
-KERNELS = (dense_stack, stencil)
+KERNELS = (dense_stack, stencil, stencil_bwd)
 
 
 def reset_launch_counts() -> None:

@@ -123,11 +123,28 @@ def test_fused_dense_block_matches_plain_block():
 
 
 def test_stacked_weights_follow_the_parameters():
-    """The fused block stacks its kernels once per weight state: the stacks
-    are reused while the weights stay, rebuilt after an in-place update,
-    and each is the plain slices of layers s..4 over source s's channels."""
+    """Outside autograd the fused block stacks its kernels once per weight
+    state: the stacks are reused while the weights stay, rebuilt after an
+    in-place update, and each is the plain slices of layers s..4 over
+    source s's channels.  When autograd records the weights, the stacks
+    are built in the graph on each call, so their gradient reaches the
+    layers' weights."""
     block = DenseBlockFlat(16, 8, 12)
     init_parameters(block, torch.Generator().manual_seed(1))
+    graph = block.stacked_weights()
+    assert all(w.grad_fn is not None for w in graph)
+    assert graph[0] is not block.stacked_weights()[0]
+    graph[2].sum().backward()
+    assert block.convs[3].weight.grad[:, 24:32].eq(1).all()
+    assert block.convs[3].weight.grad[:, :24].eq(0).all()
+    torch.set_grad_enabled(False)
+    try:
+        _stacked_weights_cache(block)
+    finally:
+        torch.set_grad_enabled(True)
+
+
+def _stacked_weights_cache(block):
     first = block.stacked_weights()
     assert all(a is b for a, b in zip(first, block.stacked_weights()))
     assert [tuple(w.shape) for w in first] == [

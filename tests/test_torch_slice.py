@@ -12,7 +12,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import ast  # noqa: E402
+import dataclasses  # noqa: E402
 import pathlib  # noqa: E402
+import pkgutil  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 
@@ -23,11 +25,19 @@ import numpy as np  # noqa: E402
 from misonet_tpu.config import DatasetConfig, ModelConfig, StftConfig  # noqa: E402
 from misonet_tpu.inference.evaluate import CascadeEvaluator as JaxEvaluator  # noqa: E402
 from misonet_tpu.models import make_miso1 as jax_miso1  # noqa: E402
+import misonet_tpu_torch  # noqa: E402
+from misonet_tpu_torch import config as tcfg  # noqa: E402
 from misonet_tpu_torch.inference.evaluate import CascadeEvaluator  # noqa: E402
-from misonet_tpu_torch.models import make_miso1  # noqa: E402
+from misonet_tpu_torch.models import make_miso1 as port_miso1  # noqa: E402
 from misonet_tpu_torch.utils.weights import load_jax_params  # noqa: E402
 
 ATOL = 1e-4
+
+
+def make_miso1(cfg, **kw):
+    """The port's MISO1 on the CPU, from the port's copy of ``cfg``."""
+    return port_miso1(tcfg.ModelConfig(**dataclasses.asdict(cfg)),
+                      device="cpu", **kw)
 
 
 def _close(out, ref, atol=ATOL):
@@ -76,6 +86,11 @@ def test_miso1_forward_matches_jax():
     _close(out.view(np.float32), ref.view(np.float32))
 
 
+def _port(cfg):
+    """The port's copy of a JAX package config."""
+    return getattr(tcfg, type(cfg).__name__)(**dataclasses.asdict(cfg))
+
+
 STFT = StftConfig(fs=8000, length=32, overlap=24)  # 17 bins
 SMALL = ModelConfig(
     num_bottleneck=4, en_channels=(8, 8, 8, 16), de_channels=(16, 8, 8, 8),
@@ -93,7 +108,8 @@ def evaluators():
     params = _random_params(jmodel, probe, 2)
     model = load_jax_params(make_miso1(SMALL, num_mics=3), params)
     return (JaxEvaluator(jmodel, params, STFT, DS, beamform_utterance=False),
-            CascadeEvaluator(model, STFT, DS, beamform_utterance=False))
+            CascadeEvaluator(model, _port(STFT), _port(DS),
+                             beamform_utterance=False))
 
 
 @pytest.mark.parametrize("with_refs", [True, False])
@@ -141,10 +157,11 @@ def test_metrics_match_jax():
 
 def test_evaluator_refuses_unported_modes():
     model = make_miso1(SMALL, num_mics=3)
+    stft, ds = _port(STFT), _port(DS)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CascadeEvaluator(model, STFT, DS)  # utterance-mode beamforming
+        CascadeEvaluator(model, stft, ds)  # utterance-mode beamforming
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CascadeEvaluator(model, STFT, DS, enhance_model=model,
+        CascadeEvaluator(model, stft, ds, enhance_model=model,
                          beamform_utterance=False)
 
 
@@ -154,10 +171,13 @@ JAX_MODULES = ("jax", "jaxlib", "flax", "optax")
 
 def _assert_imports_leave_out_jax(modules):
     """Import ``modules`` in a fresh interpreter at the repo root and check
-    that no JAX module got loaded."""
+    that no JAX module and no module of the JAX package (``misonet_tpu``
+    or ``misonet_tpu.*``; ``misonet_tpu_torch`` is the port) got loaded."""
     code = "".join(f"import {m}\n" for m in ["sys", *modules]) + (
         "bad = sorted(m for m in sys.modules\n"
-        f"             if m.split('.')[0] in {JAX_MODULES!r})\n"
+        f"             if m.split('.')[0] in {JAX_MODULES!r}\n"
+        "             or m == 'misonet_tpu'\n"
+        "             or m.startswith('misonet_tpu.'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -168,14 +188,13 @@ def _assert_imports_leave_out_jax(modules):
 
 
 def test_port_imports_no_jax():
-    _assert_imports_leave_out_jax([
-        "misonet_tpu_torch",
-        "misonet_tpu_torch.config",
-        "misonet_tpu_torch.inference.evaluate",
-        "misonet_tpu_torch.models",
-        "misonet_tpu_torch.utils.weights",
-        "misonet_tpu_torch.ops.kernels.build",
-    ])
+    """Every module of the port, found by walking the package."""
+    modules = ["misonet_tpu_torch"] + sorted(
+        m.name for m in pkgutil.walk_packages(misonet_tpu_torch.__path__,
+                                              "misonet_tpu_torch."))
+    assert {"misonet_tpu_torch.config", "misonet_tpu_torch.train.steps",
+            "misonet_tpu_torch.ops.kernels.stencil_bwd"} <= set(modules)
+    _assert_imports_leave_out_jax(modules)
 
 
 def test_chip_smoke_imports_only_the_port():

@@ -12,13 +12,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import dataclasses  # noqa: E402
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from misonet_tpu.config import ModelConfig  # noqa: E402
 from misonet_tpu.models import make_miso1 as jax_miso1  # noqa: E402
-from misonet_tpu_torch.models import make_miso1  # noqa: E402
+from misonet_tpu_torch import config as tcfg  # noqa: E402
+from misonet_tpu_torch.models import make_miso1 as port_miso1  # noqa: E402
 from misonet_tpu_torch.utils.weights import (  # noqa: E402
     jax_to_state_dict,
     load_jax_params,
@@ -42,6 +45,12 @@ def _jax_params(cfg):
     return jax.tree.map(
         lambda s: rng.standard_normal(s.shape).astype(np.float32), shapes
     )
+
+
+def make_miso1(cfg):
+    """The port's MISO1 on the CPU, from the port's copy of ``cfg``."""
+    return port_miso1(tcfg.ModelConfig(**dataclasses.asdict(cfg)),
+                      device="cpu")
 
 
 @pytest.fixture(scope="module")

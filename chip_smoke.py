@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's MISO1 serving and training paths on one GPU.
+"""Drive the PyTorch port's serving, training, cascade and CSS paths on one
+GPU.
 
     python3 chip_smoke.py
 
@@ -8,8 +9,10 @@ Phases (one or more JSON lines each; any failure exits non-zero):
   2. build    nvcc-build the CUDA kernels from misonet_tpu_torch/csrc
   3. kernels  each forward kernel against its plain PyTorch version at
               the serving path's shapes (B = 6 shifts x T = 501 frames),
-              error bound 1e-4 normalized by max-abs, CUDA-event times of
-              both and of the cuDNN conv (library_ms), and the bound
+              and the enhancement nets' own stencil shapes (MISO3 / MISO2
+              enc0 at C = 16 / 20, MISO3 final at N = 2), error bound 1e-4
+              normalized by max-abs, CUDA-event times of both and of the
+              cuDNN conv (library_ms), and the bound
   4. forward  full default-width MISO1 forward [6, 6, 501, 129] (seeded
               weights, non-zero biases): fused kernel path against the
               plain path, exactly 50 dense_stack and 10 stencil launches
@@ -29,6 +32,22 @@ Phases (one or more JSON lines each; any failure exits non-zero):
               stencil and 60 stencil_bwd launches per step and a falling
               loss, step times and peak memory of both paths, and a
               torch.profiler breakdown of one fused step
+  8. solve-kernel  hermitian_solve against hermitian_solve_plain run in
+              float64, M = 6, 258 / 1,032 / 262,144 seeded PD systems (the
+              utterance- and chunk-mode MVDR of a 12.3 s request, and a
+              throughput size), bound 1e-4; times of both and of
+              torch.linalg.solve (library_ms)
+  9. cascade  full-width MISO1 + MISO3 through CascadeEvaluator.process
+              over the phase-5 requests in utterance and chunk mode, and
+              MISO1 + MISO2 (joint) in chunk mode: exactly 100 dense_stack,
+              20 stencil and 1 hermitian_solve launches per request,
+              latency, audio-s/s and per-stage PIT SI-SDR; the 5 s request
+              again on the plain path (plain modules and plain solve),
+              beamformed and enhanced waves within 1e-3; a torch.profiler
+              breakdown of one 12.3 s utterance-mode request
+ 10. css      StreamingCSS over the 12.3 s request, overlap 0 and 8,000:
+              exactly 50 dense_stack, 10 stencil and 1 hermitian_solve
+              launches per block, per-block latency
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Needs one CUDA device; exits 1
@@ -39,6 +58,7 @@ once, each output written once) over its memory rate.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -50,10 +70,13 @@ import numpy as np
 import torch
 
 BOUND = 1e-4   # kernel vs plain, normalized by the plain output's max-abs
+CASCADE_BOUND = 1e-3  # fused vs plain beamformed / enhanced waves
 TRAIN_BOUND = 1e-3  # fused vs plain train-step gradients (60 layers deep)
 B, T = 6, 501  # M = 6 circular shifts of one 4 s chunk
 TRAIN_B = 8    # utterances of 4 s per train step (bench.py --train)
 TRAIN_STEPS = 5
+REQUEST_S = (5.0, 9.0, 12.3)  # synthetic requests of phases 5 and 9
+SOLVE_BATCHES = (258, 1032, 262144)  # systems per hermitian_solve call
 PERTURB = 3e-6  # relative input perturbation of the sensitivity probe
 # the parameters whose gradients come out of stencil_bwd (the fused body)
 BODY = re.compile(r"^(enc[0-4]|enc[0-4]_dense|dec[2-6]|dec[2-6]_dense)\.")
@@ -95,7 +118,11 @@ def rand(rng, shape, lo=None, hi=None, scale=1.0) -> torch.Tensor:
 
 
 def tensors_of(values):
-    """The tensors among ``values``, lists and tuples opened up."""
+    """The tensors among ``values`` (a tensor, or a list or tuple, opened
+    up recursively)."""
+    if isinstance(values, torch.Tensor):
+        yield values
+        return
     for v in values:
         if isinstance(v, (list, tuple)):
             yield from tensors_of(v)
@@ -135,18 +162,24 @@ def output_errs(name, got, want):
     return errs
 
 
+def widen(t: torch.Tensor) -> torch.Tensor:
+    """float32 -> float64, complex64 -> complex128."""
+    return t.to(torch.complex128 if t.is_complex() else torch.float64)
+
+
 def check_kernel(name, kernel, plain, args, record, flops, library,
-                 in_float64=False):
+                 in_float64=False, phase="kernels", to_record=True):
     """Compare one kernel call with its plain version; time both and the
     library call ``library`` (a PyTorch call computing the same function);
     add the call's bound.  ``in_float64``: the plain version runs on the
-    inputs cast to float64 for the comparison (its float32 run, through
-    cuDNN's reductions, is then reported beside the kernel)."""
+    inputs widened to float64 for the comparison (its float32 run is then
+    reported beside the kernel).  ``to_record``: add the times to the
+    kernel's record (its main-path cases)."""
     got = kernel(*args)
     extra = {}
     if in_float64:
-        want = plain(*[a.double() if isinstance(a, torch.Tensor) else
-                       [x.double() for x in a] if isinstance(a, list) else a
+        want = plain(*[widen(a) if isinstance(a, torch.Tensor) else
+                       [widen(x) for x in a] if isinstance(a, list) else a
                        for a in args])
         extra["plain_f32_max_norm_err"] = max(
             e[1] for e in output_errs(name, plain(*args), want))
@@ -163,7 +196,6 @@ def check_kernel(name, kernel, plain, args, record, flops, library,
         # the wgrad half alone: the same call without input gradients
         extra["wgrad_ms"] = cuda_ms(lambda: kernel(*args[:-1], False))
     bound, t_ops, t_bytes = bound_ms(flops, args, got)
-    phase = "bwd-kernels" if record["name"] == "stencil_bwd" else "kernels"
     print(json.dumps({"phase": phase, "case": name,
                       "max_abs_err": err, "max_norm_err": rel,
                       "bound": BOUND, "ms": t_kernel, "plain_ms": t_plain,
@@ -173,6 +205,8 @@ def check_kernel(name, kernel, plain, args, record, flops, library,
                       else "bytes", **extra}), flush=True)
     if not rel <= BOUND:
         fail(f"{name}: normalized error {rel} above {BOUND}")
+    if not to_record:
+        return
     record["max_abs_err"] = max(record["max_abs_err"], err)
     record["max_norm_err"] = max(record["max_norm_err"], rel)
     record["ms"] += t_kernel
@@ -184,7 +218,10 @@ def check_kernel(name, kernel, plain, args, record, flops, library,
 
 
 def tensors_or_none(out):
-    """A kernel's outputs as a flat list, keeping None placeholders."""
+    """A kernel's outputs (one tensor, or a tuple) as a flat list, keeping
+    None placeholders."""
+    if isinstance(out, torch.Tensor):
+        return [out]
     flat = []
     for v in out:
         if isinstance(v, (list, tuple)):
@@ -220,6 +257,13 @@ STENCIL_CASES = [
     ("dec2", "up", 64, 32, 7),
     ("dec5", "up", 64, 24, 63),
     ("dec6", "final", 48, 4, 127),
+]
+# (name, mode, C, N, F_in, batch): the enhancement nets' own stencil shapes
+# at a 12.3 s request's batch (4 chunks; MISO3 runs chunks x 2 speakers)
+ENHANCE_STENCIL_CASES = [
+    ("miso3 enc0", "enc0", 16, 24, 129, 8),
+    ("miso2 enc0", "enc0", 20, 24, 129, 4),
+    ("miso3 dec6", "final", 48, 2, 127, 8),
 ]
 
 
@@ -258,11 +302,12 @@ def phase_kernels(records):
                      2 * conv_macs("dense", B, c, n, T, f),
                      lambda: F.conv2d(xn, args[2], padding=1))
 
-    for name, mode, c, n, f_in in STENCIL_CASES:
+    for name, mode, c, n, f_in, b in [*(case + (B,) for case in STENCIL_CASES),
+                                      *ENHANCE_STENCIL_CASES]:
         wshape = (c, n, 3, 3) if mode in ("up", "final") else (n, c, 3, 3)
         stats = ([None, None] if mode == "enc0" else
-                 [rand(rng, (B, c), 0.5, 1.5), rand(rng, (B, c), -0.5, 0.5)])
-        args = [rand(rng, (B, c, T, f_in)),
+                 [rand(rng, (b, c), 0.5, 1.5), rand(rng, (b, c), -0.5, 0.5)])
+        args = [rand(rng, (b, c, T, f_in)),
                 rand(rng, wshape, scale=1.0 / np.sqrt(9 * c)),
                 rand(rng, (n,), scale=0.1), *stats, mode]
         xn = normalized([args[0]], *stats)
@@ -270,7 +315,7 @@ def phase_kernels(records):
         conv = (F.conv_transpose2d if mode in ("up", "final") else F.conv2d)
         check_kernel(f"stencil {name}", stencil, stencil_plain, args,
                      records["stencil"],
-                     2 * conv_macs(mode, B, c, n, T, f_in),
+                     2 * conv_macs(mode, b, c, n, T, f_in),
                      lambda: conv(xn, args[1], args[2], stride=stride,
                                   padding=padding))
 
@@ -322,14 +367,14 @@ def phase_bwd_kernels(records):
         check_kernel(f"stencil_bwd {name}", stencil_bwd, stencil_bwd_plain,
                      args, records["stencil_bwd"],
                      2 * macs * (2 if need_dx else 1), library,
-                     in_float64=True)
+                     in_float64=True, phase="bwd-kernels")
 
 
-def seeded_model(cfg, device):
-    from misonet_tpu_torch.models import make_miso1
+def seeded_model(cfg, device, kind="miso1", seed=SEED):
+    from misonet_tpu_torch import models
 
-    gen = torch.Generator().manual_seed(SEED)
-    model = make_miso1(cfg, device=device, generator=gen)
+    gen = torch.Generator().manual_seed(seed)
+    model = getattr(models, f"make_{kind}")(cfg, device=device, generator=gen)
     with torch.no_grad():
         for name, p in model.named_parameters():
             if name.endswith("bias"):  # non-zero biases exercise the epilogues
@@ -348,7 +393,8 @@ def phase_forward(model, cfg):
         fused = model(x)
         torch.cuda.synchronize()
         counts = launch_counts()
-        if counts != {"dense_stack": 50, "stencil": 10, "stencil_bwd": 0}:
+        if counts != {"dense_stack": 50, "stencil": 10, "stencil_bwd": 0,
+                      "hermitian_solve": 0}:
             fail(f"forward launched {counts}, expected 50 dense_stack and "
                  "10 stencil")
         t_fused = cuda_ms(lambda: model(x), reps=5)
@@ -399,7 +445,7 @@ def phase_serve(model, cfg, device_line, records):
     ds = DatasetConfig()
     ev = CascadeEvaluator(model, StftConfig(), ds, beamform_utterance=False)
     rng = np.random.default_rng(SEED + 2)
-    requests = [synth_request(rng, s) for s in (5.0, 9.0, 12.3)]
+    requests = [synth_request(rng, s) for s in REQUEST_S]
 
     reset_launch_counts()
     results = []
@@ -426,7 +472,7 @@ def phase_serve(model, cfg, device_line, records):
                  f"{res.separated.shape}, score {score}")
     n_req = len(requests)
     if counts != {"dense_stack": 50 * n_req, "stencil": 10 * n_req,
-                  "stencil_bwd": 0}:
+                  "stencil_bwd": 0, "hermitian_solve": 0}:
         fail(f"serve launched {counts}, expected {50 * n_req} dense_stack "
              f"and {10 * n_req} stencil ({n_req} requests)")
     for name, n in counts.items():
@@ -472,9 +518,14 @@ def step_ms(step, state, batch, n):
     return times, metrics
 
 
-def profile_step(step, state, batch):
-    """torch.profiler over one warm train step: device time by kernel
-    group, device busy share of the step's wall time."""
+# the port's torch.profiler ranges (ops/stft.py, beamforming/mvdr.py)
+RANGES = ("stft", "istft", "mvdr.scm", "mvdr.power_iteration")
+
+
+def profile_call(fn):
+    """torch.profiler over one warm call of ``fn``: device time by kernel
+    group and inside each of the port's ranges (the host time spent in
+    them beside it), device busy share of the call's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -482,14 +533,24 @@ def profile_step(step, state, batch):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(state, *batch)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     groups = {"dense_stack": 0.0, "stencil": 0.0, "stencil_bwd": 0.0,
-              "reduce_stats": 0.0, "other": 0.0}
+              "hermitian_solve": 0.0, "reduce_stats": 0.0, "other": 0.0}
+    calls = dict.fromkeys(groups, 0)
     other = {}
+    ranges = {}
     kernels = 0
     for e in prof.key_averages():
+        if (e.key in RANGES
+                and getattr(e, "device_type", None) == DeviceType.CPU):
+            dev = getattr(e, "device_time_total", None)
+            ranges[e.key] = {
+                "calls": e.count,
+                "device_ms": (dev if dev is not None
+                              else e.cuda_time_total) / 1e3,
+                "host_ms": e.cpu_time_total / 1e3}
         # device work only: kernels, copies, fills; not user annotations
         # such as Optimizer.step#Adam.step, which span kernels counted on
         # their own
@@ -503,24 +564,31 @@ def profile_step(step, state, batch):
         kernels += e.count
         name = e.key
         if "dense_stack_kernel" in name:
-            groups["dense_stack"] += us
+            group = "dense_stack"
         elif "stencil_kernel" in name:
-            groups["stencil"] += us
+            group = "stencil"
         elif "dgrad_kernel" in name or "wgrad_" in name:
-            groups["stencil_bwd"] += us
+            group = "stencil_bwd"
+        elif "hermitian_solve_kernel" in name:
+            group = "hermitian_solve"
         elif "reduce_stats_kernel" in name:
-            groups["reduce_stats"] += us
+            group = "reduce_stats"
         else:
-            groups["other"] += us
+            group = "other"
             other[name[:60]] = other.get(name[:60], 0.0) + us
+        groups[group] += us
+        calls[group] += e.count
     busy = sum(groups.values()) / 1e3
     top = sorted(other.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall, "device_busy_ms": busy,
             "busy_share": busy / wall if wall else None,
+            "idle_share": 1 - busy / wall if wall else None,
             "kernels": kernels,
             "ms": {k: v / 1e3 for k, v in groups.items()},
+            "calls": calls,
             "share": {k: v / 1e3 / busy if busy else None
                       for k, v in groups.items()},
+            "ranges": ranges,
             "top_other_ms": {k: v / 1e3 for k, v in top}}
 
 
@@ -645,7 +713,7 @@ def phase_train(cfg, device, records):
     counts = launch_counts()
     peak_fused = torch.cuda.max_memory_allocated() / 2**30
     want = {"dense_stack": 50 * TRAIN_STEPS, "stencil": 10 * TRAIN_STEPS,
-            "stencil_bwd": 60 * TRAIN_STEPS}
+            "stencil_bwd": 60 * TRAIN_STEPS, "hermitian_solve": 0}
     losses = [m["loss"] for m in metrics]
     print(json.dumps({"phase": "train", "path": "fused", "steps": TRAIN_STEPS,
                       "launches": counts, "losses": losses,
@@ -677,9 +745,244 @@ def phase_train(cfg, device, records):
                       "stencil_bwd_bound_ms": bwd_flop / PEAK_FLOPS * 1e3}),
           flush=True)
 
-    prof = profile_step(step, state, batch)
+    prof = profile_call(lambda: step(state, *batch))
     print(json.dumps({"phase": "train", "profile": "one fused step", **prof}),
           flush=True)
+
+
+def solve_flops(m: int) -> int:
+    """Floating-point operations of one M x M system in the solve kernel:
+    Cholesky pivots (diag add, j complex squares, max, sqrt, reciprocal),
+    its off-diagonal entries (j complex multiply-subtracts and a scaling
+    each), then forward and back substitution."""
+    pivots = sum(4 + 4 * j for j in range(m))
+    lower = sum((m - 1 - j) * (8 * j + 2) for j in range(m))
+    subst = 2 * sum(8 * j + 2 for j in range(m))
+    return pivots + lower + subst
+
+
+def pd_systems(rng, n, m=6):
+    """n seeded Hermitian positive-definite systems (R = A A^H + 0.1 I) and
+    right-hand sides, complex64 on the card."""
+    a = rng.standard_normal((n, m, m)) + 1j * rng.standard_normal((n, m, m))
+    r = np.einsum("nij,nkj->nik", a, a.conj()) + 0.1 * np.eye(m)
+    r = 0.5 * (r + np.conj(r.swapaxes(-1, -2)))
+    d = rng.standard_normal((n, m)) + 1j * rng.standard_normal((n, m))
+    return (torch.from_numpy(np.ascontiguousarray(r, np.complex64)).cuda(),
+            torch.from_numpy(np.ascontiguousarray(d, np.complex64)).cuda())
+
+
+def phase_solve(records):
+    """hermitian_solve against its plain version run in float64 at the MVDR
+    batches of a 12.3 s request (utterance mode 2 x 129, chunk mode
+    4 x 2 x 129) and at a throughput size; the library yardstick is
+    torch.linalg.solve on (R + 1e-6 I)."""
+    from misonet_tpu_torch.ops.kernels.hermitian_solve import (
+        hermitian_solve, hermitian_solve_plain)
+
+    rng = np.random.default_rng(SEED + 6)
+    m = 6
+    eye = 1e-6 * torch.eye(m, dtype=torch.complex64, device="cuda")
+    for n in SOLVE_BATCHES:
+        r, d = pd_systems(rng, n, m)
+        check_kernel(f"hermitian_solve n={n}", hermitian_solve,
+                     hermitian_solve_plain, (r, d), records["hermitian_solve"],
+                     n * solve_flops(m),
+                     lambda: torch.linalg.solve(r + eye, d[..., None]),
+                     in_float64=True, phase="solve-kernel",
+                     to_record=n != SOLVE_BATCHES[-1])
+        # at serving sizes the CUDA-event time of back-to-back calls is the
+        # wrapper's host time; the profiler gives the kernel's own
+        prof = profile_call(lambda: [hermitian_solve(r, d) for _ in range(10)])
+        dev_ms = prof["ms"]["hermitian_solve"] / 10
+        print(json.dumps({"phase": "solve-kernel", "case": f"n={n}",
+                          "kernel_device_ms": dev_ms}), flush=True)
+        if n != SOLVE_BATCHES[-1]:
+            records["hermitian_solve"]["device_ms"] = (
+                records["hermitian_solve"].get("device_ms", 0.0) + dev_ms)
+
+
+@contextlib.contextmanager
+def plain_path(models):
+    """``models`` on their plain modules and the MVDR on the plain solve,
+    for a reference run on the card."""
+    from misonet_tpu_torch.beamforming import mvdr
+    from misonet_tpu_torch.ops.kernels.hermitian_solve import (
+        hermitian_solve_plain)
+
+    cfgs = [m.cfg for m in models]
+    solve = mvdr.hermitian_solve
+    for m in models:
+        m.cfg = dataclasses.replace(m.cfg, flat_dense=False)
+    mvdr.hermitian_solve = hermitian_solve_plain
+    try:
+        yield
+    finally:
+        mvdr.hermitian_solve = solve
+        for m, c in zip(models, cfgs):
+            m.cfg = c
+
+
+def check_result(name, res, refs, stages):
+    """Fail unless every stage's wave is finite, of the references' shape,
+    and scored."""
+    for stage, key in stages:
+        est = getattr(res, stage)
+        if (est is None or est.shape != refs.shape
+                or not np.isfinite(est).all()
+                or not np.isfinite(res.si_sdr.get(key, np.nan))):
+            fail(f"{name}: {stage} is {None if est is None else est.shape}, "
+                 f"score {res.si_sdr.get(key)}")
+
+
+def phase_cascade(cfg, device, device_line, records):
+    """The cascade at full width: MISO1 + MISO3 in both beamforming modes
+    over the phase-5 requests, MISO1 + MISO2 (joint) in chunk mode, exact
+    launch counts per request, the plain path on the 5 s request, and a
+    profile of one 12.3 s utterance-mode request."""
+    from misonet_tpu_torch.beamforming.mvdr import principal_eigenvector
+    from misonet_tpu_torch.config import DatasetConfig, StftConfig
+    from misonet_tpu_torch.inference.evaluate import CascadeEvaluator
+    from misonet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    ds, stft_cfg = DatasetConfig(), StftConfig()
+    miso1 = seeded_model(cfg, device)
+    miso3 = seeded_model(cfg, device, "miso3", SEED + 7)
+    miso2 = seeded_model(cfg, device, "miso2", SEED + 8)
+    rng = np.random.default_rng(SEED + 2)
+    requests = [synth_request(rng, s) for s in REQUEST_S]
+    stages = [("separated", "miso1"), ("beamformed", "beamform"),
+              ("enhanced", "enhanced")]
+    want = {"dense_stack": 100, "stencil": 20, "stencil_bwd": 0,
+            "hermitian_solve": 1}
+    runs = [("utterance", "miso3", miso3, False, requests),
+            ("chunk", "miso3", miso3, False, requests),
+            ("chunk", "miso2", miso2, True, requests[-1:])]
+    evaluators = {}
+    solves = 0
+    for mode, enh_name, enh, joint, reqs in runs:
+        ev = CascadeEvaluator(miso1, stft_cfg, ds, enhance_model=enh,
+                              joint=joint,
+                              beamform_utterance=mode == "utterance")
+        evaluators[mode, enh_name] = ev
+        ev.process(*requests[0])   # warm-up: cuFFT plans, allocator
+        torch.cuda.synchronize()
+        for mix, refs in reqs:
+            secs = mix.shape[0] / ds.fs
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            res = ev.process(mix, refs)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = launch_counts()
+            solves += counts["hermitian_solve"]
+            print(json.dumps({"phase": "cascade", "mode": mode,
+                              "enhance": enh_name, "audio_s": secs,
+                              "chunks": -(-mix.shape[0] // ds.chunk_samples),
+                              "latency_s": dt, "audio_s_per_s": secs / dt,
+                              "pit_si_sdr_db": res.si_sdr,
+                              "launches": counts, "device": device_line}),
+                  flush=True)
+            check_result(f"cascade {mode} {enh_name} {secs} s", res, refs,
+                         stages)
+            if counts != want:
+                fail(f"cascade {mode} {enh_name}: launched {counts}, "
+                     f"expected {want}")
+    records["hermitian_solve"]["launches"] = solves
+
+    # the 5 s request on the plain path: plain modules, plain solve
+    mix, refs = requests[0]
+    for mode in ("utterance", "chunk"):
+        ev = evaluators[mode, "miso3"]
+        fused = ev.process(mix, refs)
+        with plain_path([miso1, miso3]):
+            reset_launch_counts()
+            plain = ev.process(mix, refs)
+            plain_counts = launch_counts()
+            # the plain path's own sensitivity: the same run from the
+            # mixture perturbed by PERTURB relative noise
+            noise = np.random.default_rng(SEED + 9).standard_normal(
+                mix.shape).astype(np.float32)
+            moved = ev.process(mix * (1 + PERTURB * noise), refs)
+        errs, sens = {}, {}
+        for stage in ("separated", "beamformed", "enhanced"):
+            ref = torch.from_numpy(getattr(plain, stage))
+            errs[stage] = norm_err(torch.from_numpy(getattr(fused, stage)),
+                                   ref)[1]
+            sens[stage] = norm_err(torch.from_numpy(getattr(moved, stage)),
+                                   ref)[1]
+        print(json.dumps({"phase": "cascade", "check": f"fused vs plain, "
+                          f"5 s, {mode} mode", "max_norm_err": errs,
+                          "bound": CASCADE_BOUND,
+                          "plain_sensitivity": sens,
+                          "perturbation": PERTURB,
+                          "plain_launches": plain_counts,
+                          "si_sdr_fused": fused.si_sdr,
+                          "si_sdr_plain": plain.si_sdr}), flush=True)
+        if any(plain_counts.values()):
+            fail(f"cascade: the plain path launched {plain_counts}")
+        if not max(errs.values()) <= CASCADE_BOUND:
+            fail(f"cascade {mode}: fused vs plain {errs} above "
+                 f"{CASCADE_BOUND}")
+
+    # where one 12.3 s utterance-mode request's time goes
+    ev = evaluators["utterance", "miso3"]
+    prof = profile_call(lambda: ev.process(*requests[-1]))
+    print(json.dumps({"phase": "cascade", "profile": "one 12.3 s "
+                      "utterance-mode request", **prof}), flush=True)
+    # the power iteration alone at that request's SCM batch (2 speakers x
+    # 129 bins): host time and device time of the 100-step loop
+    r, _ = pd_systems(np.random.default_rng(SEED + 10), 2 * 129)
+    r = r.reshape(2, 129, 6, 6)
+    principal_eigenvector(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    principal_eigenvector(r)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    print(json.dumps({"phase": "cascade", "power_iteration": "100 steps, "
+                      "[2, 129, 6, 6]", "wall_ms": wall,
+                      "device_ms": cuda_ms(lambda: principal_eigenvector(r),
+                                           reps=5)}), flush=True)
+
+
+def phase_css(cfg, device, device_line):
+    """StreamingCSS over the 12.3 s request, edge to edge and cross-faded:
+    exactly 50 dense_stack, 10 stencil and 1 hermitian_solve launches per
+    block."""
+    from misonet_tpu_torch.config import DatasetConfig, StftConfig
+    from misonet_tpu_torch.inference.css import StreamingCSS
+    from misonet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    ds = DatasetConfig()
+    css = StreamingCSS(seeded_model(cfg, device), StftConfig(), ds)
+    rng = np.random.default_rng(SEED + 2)
+    mix, _ = [synth_request(rng, s) for s in REQUEST_S][-1]
+    css.process(mix[: ds.chunk_samples])   # warm-up
+    for overlap in (0, 8000):
+        hop = ds.chunk_samples - overlap
+        blocks = (-(-mix.shape[0] // ds.chunk_samples) if overlap == 0 else
+                  max(1, -(-max(mix.shape[0] - overlap, 1) // hop)))
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = css.process(mix, overlap=overlap)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = launch_counts()
+        want = {"dense_stack": 50 * blocks, "stencil": 10 * blocks,
+                "stencil_bwd": 0, "hermitian_solve": blocks}
+        print(json.dumps({"phase": "css", "overlap": overlap,
+                          "blocks": blocks, "audio_s": mix.shape[0] / ds.fs,
+                          "latency_s": dt, "block_latency_s": dt / blocks,
+                          "launches": counts, "device": device_line}),
+              flush=True)
+        for k, v in out.items():
+            if v.shape != (2, mix.shape[0]) or not np.isfinite(v).all():
+                fail(f"css overlap {overlap}: {k} {v.shape} not finite/"
+                     "expected")
+        if counts != want:
+            fail(f"css overlap {overlap}: launched {counts}, expected {want}")
 
 
 def main() -> int:
@@ -723,27 +1026,46 @@ def main() -> int:
             ("dense_stack", "misonet_tpu/ops/pallas/dense_stack.py:316"),
             ("stencil", "misonet_tpu/ops/pallas/stencil_flat.py:242"),
             ("stencil_bwd", "misonet_tpu/ops/pallas/stencil_bwd.py:300"),
+            ("hermitian_solve", "misonet_tpu/ops/pallas/mvdr_solve.py:93"),
         ]
     }
-    phase_kernels(records)
+    seconds = {"build": time.perf_counter() - t0}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        fn(*args)
+        seconds[name] = time.perf_counter() - t
+
+    timed("kernels", phase_kernels, records)
 
     # 4. forward
     cfg = ModelConfig(compute_dtype="float32")
     model = seeded_model(cfg, device)
-    phase_forward(model, cfg)
+    timed("forward", phase_forward, model, cfg)
 
     # 5. serve
-    phase_serve(model, cfg, smi, records)
+    timed("serve", phase_serve, model, cfg, smi, records)
     del model
 
     # 6. bwd-kernels
-    phase_bwd_kernels(records)
+    timed("bwd-kernels", phase_bwd_kernels, records)
 
     # 7. train
-    phase_train(cfg, device, records)
+    timed("train", phase_train, cfg, device, records)
 
-    # every time is the sum over that kernel's cases in phase 3 or 6;
-    # launches are those of the train path's run (phase 7)
+    # 8. solve-kernel
+    timed("solve-kernel", phase_solve, records)
+
+    # 9. cascade
+    timed("cascade", phase_cascade, cfg, device, smi, records)
+
+    # 10. css
+    timed("css", phase_css, cfg, device, smi)
+    print(json.dumps({"phase": "timing", "seconds": seconds}), flush=True)
+
+    # every time is the sum over that kernel's main-path cases in phase 3,
+    # 6 or 8; launches are those of the train path's run (phase 7), and of
+    # the cascade's requests (phase 9) for hermitian_solve
     for r in records.values():
         r["bound_by"] = ("operations" if r.pop("ops_ms") >= r.pop("bytes_ms")
                          else "bytes")

@@ -6,12 +6,16 @@ module names so each counterpart is easy to find:
   * ``ops.stft`` / ``ops.chunk``   framed-FFT STFT/iSTFT, utterance chunking
   * ``ops.kernels``                hand-written CUDA kernels (``csrc/``) for
                                    the fused U-Net body, forward and
-                                   backward, each beside its plain PyTorch
-                                   version; ``flat_grad`` makes them
-                                   differentiable
+                                   backward, and the MVDR's batched
+                                   Hermitian solve, each beside its plain
+                                   PyTorch version; ``flat_grad`` makes the
+                                   U-Net kernels differentiable
   * ``models``                     the MISO U-Net + TCN (``MISONet``)
-  * ``inference``                  circular-shift decode and the MISO1
-                                   separation evaluator
+  * ``beamforming``                MVDR and streaming SCMs
+  * ``inference``                  circular-shift decode, the MISO1 -> MVDR
+                                   -> MISO3/MISO2 cascade and its evaluator,
+                                   streaming CSS
+  * ``data.wavio``                 wav reading and writing
   * ``losses`` / ``train``         uPIT and enhancement losses; optimizer,
                                    train state and the train/eval steps
   * ``utils.weights``              JAX params -> port ``state_dict``

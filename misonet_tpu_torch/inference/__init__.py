@@ -1,1 +1,2 @@
-"""MISO1 inference of the port (misonet_tpu/inference)."""
+"""Inference of the port (misonet_tpu/inference): decode, cascade,
+evaluator, streaming CSS."""

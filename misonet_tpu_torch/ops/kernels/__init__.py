@@ -5,10 +5,11 @@ tensors, its plain PyTorch version (run for CPU tensors and used as the
 reference on the card), and a plain-int launch counter on the wrapper."""
 
 from misonet_tpu_torch.ops.kernels.dense_stack import dense_stack
+from misonet_tpu_torch.ops.kernels.hermitian_solve import hermitian_solve
 from misonet_tpu_torch.ops.kernels.stencil import stencil
 from misonet_tpu_torch.ops.kernels.stencil_bwd import stencil_bwd
 
-KERNELS = (dense_stack, stencil, stencil_bwd)
+KERNELS = (dense_stack, stencil, stencil_bwd, hermitian_solve)
 
 
 def reset_launch_counts() -> None:

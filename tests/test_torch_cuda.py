@@ -1,6 +1,7 @@
 """PyTorch port on the card: each CUDA kernel against its plain PyTorch
-version (the version the CPU tests hold to the JAX package), and the fused
-MISO1 forward and train-step gradients against the plain path.
+version (the version the CPU tests hold to the JAX package), the fused
+MISO1 and MISO3 forwards and MISO1 train-step gradients against the plain
+path, and the MVDR stage through the solve kernel.
 
 Card only (marker ``cuda``); every test skips itself without a CUDA device.
 This file imports no JAX, so on a machine without JAX it runs with
@@ -17,13 +18,18 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from misonet_tpu_torch.beamforming.mvdr import mvdr_beamform  # noqa: E402
 from misonet_tpu_torch.config import ModelConfig  # noqa: E402
 from misonet_tpu_torch.losses import loss_enhance  # noqa: E402
-from misonet_tpu_torch.models import make_miso1  # noqa: E402
+from misonet_tpu_torch.models import make_miso1, make_miso3  # noqa: E402
 from misonet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts  # noqa: E402
 from misonet_tpu_torch.ops.kernels.dense_stack import (  # noqa: E402
     dense_stack,
     dense_stack_plain,
+)
+from misonet_tpu_torch.ops.kernels.hermitian_solve import (  # noqa: E402
+    hermitian_solve,
+    hermitian_solve_plain,
 )
 from misonet_tpu_torch.ops.kernels.stencil import (  # noqa: E402
     out_bins,
@@ -98,6 +104,9 @@ def test_dense_stack_kernel_matches_plain(cuda, widths, n, n_fin, with_acc,
     ("enc0", 12, 24, 129, 37), ("down", 24, 32, 127, 37),
     ("up", 64, 24, 63, 37), ("final", 48, 4, 127, 37),
     ("up", 5, 33, 1, 3), ("up", 8, 8, 7, 50), ("down", 3, 40, 5, 2),
+    # the enhancement nets' own: MISO3 / MISO2 enc0, MISO3 final
+    ("enc0", 16, 24, 129, 37), ("enc0", 20, 24, 129, 37),
+    ("final", 48, 2, 127, 37),
 ])
 def test_stencil_kernel_matches_plain(cuda, mode, c, n, f_in, t):
     rng = np.random.default_rng(5)
@@ -138,8 +147,83 @@ def test_fused_forward_matches_plain(cuda):
         counts = launch_counts()
         model.cfg = dataclasses.replace(cfg, flat_dense=False)
         plain = model(x)
-    assert counts == {"dense_stack": 50, "stencil": 10, "stencil_bwd": 0}
+    assert counts == {"dense_stack": 50, "stencil": 10, "stencil_bwd": 0,
+                      "hermitian_solve": 0}
     _close(torch.view_as_real(fused), torch.view_as_real(plain))
+
+
+@pytest.mark.cuda
+def test_fused_miso3_forward_matches_plain(cuda):
+    """MISO3 (6 mics + MISO1 + BF = 8 complex input channels, 1 speaker) on
+    the narrow 7-level plan: 50 dense_stack and 10 stencil launches, the
+    enc0 stencil at C = 16 and the final one at N = 2."""
+    cfg = ModelConfig(en_channels=(8, 8, 8, 8, 8, 16, 16),
+                      de_channels=(16, 16, 8, 8, 8, 8, 8), tcn_repeats=1,
+                      tcn_blocks=3, tcn_channels=16, compute_dtype="float32")
+    model = make_miso3(cfg, device=cuda,
+                       generator=torch.Generator().manual_seed(4))
+    rng = np.random.default_rng(1)
+    x = torch.complex(_t(rng, (4, 8, 40, 129)), _t(rng, (4, 8, 40, 129)))
+    with torch.inference_mode():
+        reset_launch_counts()
+        fused = model(x)
+        counts = launch_counts()
+        model.cfg = dataclasses.replace(cfg, flat_dense=False)
+        plain = model(x)
+    assert fused.shape == (4, 1, 40, 129)
+    assert counts == {"dense_stack": 50, "stencil": 10, "stencil_bwd": 0,
+                      "hermitian_solve": 0}
+    _close(torch.view_as_real(fused), torch.view_as_real(plain))
+
+
+def _systems(rng, batch, m):
+    a = (rng.standard_normal(batch + (m, m))
+         + 1j * rng.standard_normal(batch + (m, m)))
+    r = np.einsum("...ij,...kj->...ik", a, a.conj()) + 0.1 * np.eye(m)
+    r = 0.5 * (r + np.conj(r.swapaxes(-1, -2)))
+    d = rng.standard_normal(batch + (m,)) + 1j * rng.standard_normal(
+        batch + (m,))
+    return (torch.from_numpy(np.ascontiguousarray(r, np.complex64)).cuda(),
+            torch.from_numpy(np.ascontiguousarray(d, np.complex64)).cuda())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,m", [
+    ((1,), 6), ((63,), 6), ((65,), 4), ((1031,), 6), ((2, 129), 6),
+    ((7, 3), 4), ((33,), 2), ((33,), 8),
+])
+def test_hermitian_solve_kernel_matches_plain(cuda, batch, m):
+    """Odd batch sizes leave the last block part-empty; the plain version
+    runs in float64 as the reference."""
+    r, d = _systems(np.random.default_rng(8), batch, m)
+    before = hermitian_solve.launches
+    got = hermitian_solve(r, d)
+    want = hermitian_solve_plain(r.to(torch.complex128),
+                                 d.to(torch.complex128))
+    torch.cuda.synchronize()
+    assert hermitian_solve.launches == before + 1
+    assert got.shape == d.shape and got.dtype == torch.complex64
+    _close(torch.view_as_real(got), torch.view_as_real(want.to(got.dtype)))
+
+
+@pytest.mark.cuda
+def test_mvdr_on_the_card_launches_one_solve(cuda):
+    """Speakers x chunks x bins in one call: one kernel launch; the result
+    agrees with the CPU path (the plain solve) to 1e-3 of max-abs."""
+    rng = np.random.default_rng(9)
+    shape = (3, 2, 6, 50, 129)            # chunks, speakers, mics, T, F
+    src = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    mix = src.sum(1) + 0.1 * (rng.standard_normal((3, 6, 50, 129))
+                              + 1j * rng.standard_normal((3, 6, 50, 129)))
+    src = torch.from_numpy(src.astype(np.complex64))
+    mix = torch.from_numpy(mix.astype(np.complex64))[:, None]
+    before = hermitian_solve.launches
+    got = mvdr_beamform(src.cuda(), mix.cuda())
+    torch.cuda.synchronize()
+    assert hermitian_solve.launches == before + 1
+    want = mvdr_beamform(src, mix)
+    scale = want.abs().max().item()
+    assert (got.cpu() - want).abs().max().item() <= 1e-3 * scale
 
 
 @pytest.mark.cuda
@@ -208,7 +292,8 @@ def test_fused_train_gradients_match_plain(cuda):
     counts = launch_counts()
     model.cfg = dataclasses.replace(cfg, flat_dense=False)
     plain_loss, plain = grads()
-    assert counts == {"dense_stack": 50, "stencil": 10, "stencil_bwd": 60}
+    assert counts == {"dense_stack": 50, "stencil": 10, "stencil_bwd": 60,
+                      "hermitian_solve": 0}
     assert abs(fused_loss - plain_loss) <= 1e-4 * abs(plain_loss)
     # leaves that are zero in exact arithmetic (the gLN shift of each
     # dsconv1) hold rounding noise: max-abs floored at 1e-3 of the largest

@@ -156,13 +156,21 @@ def test_metrics_match_jax():
 
 
 def test_evaluator_refuses_unported_modes():
+    """Every evaluator mode is ported now (the default, utterance-mode
+    beamforming, and the enhance nets construct); what the port still
+    refuses is the collective SCM and the bf16 compute path."""
+    from misonet_tpu_torch.beamforming.scm import chunked_scm
+
     model = make_miso1(SMALL, num_mics=3)
     stft, ds = _port(STFT), _port(DS)
+    assert CascadeEvaluator(model, stft, ds).beamform_utterance
+    assert CascadeEvaluator(model, stft, ds, enhance_model=model,
+                            beamform_utterance=False).enhance_model is model
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CascadeEvaluator(model, stft, ds)  # utterance-mode beamforming
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CascadeEvaluator(model, stft, ds, enhance_model=model,
-                         beamform_utterance=False)
+        chunked_scm(torch.zeros((2, 3, 4, 17), dtype=torch.complex64),
+                    axis_name="blocks")
+    with pytest.raises(ValueError, match="float32"):
+        make_miso1(dataclasses.replace(SMALL, compute_dtype="bfloat16"))
 
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -193,7 +201,13 @@ def test_port_imports_no_jax():
         m.name for m in pkgutil.walk_packages(misonet_tpu_torch.__path__,
                                               "misonet_tpu_torch."))
     assert {"misonet_tpu_torch.config", "misonet_tpu_torch.train.steps",
-            "misonet_tpu_torch.ops.kernels.stencil_bwd"} <= set(modules)
+            "misonet_tpu_torch.ops.kernels.stencil_bwd",
+            "misonet_tpu_torch.ops.kernels.hermitian_solve",
+            "misonet_tpu_torch.beamforming.mvdr",
+            "misonet_tpu_torch.beamforming.scm",
+            "misonet_tpu_torch.inference.cascade",
+            "misonet_tpu_torch.inference.css",
+            "misonet_tpu_torch.data.wavio"} <= set(modules)
     _assert_imports_leave_out_jax(modules)
 
 

@@ -61,3 +61,25 @@ def test_chunks_match_jax(n):
     np.testing.assert_array_equal(pt, pj)
     assert gt == gj
     np.testing.assert_array_equal(tchunk.merge_chunks(pt, gt), x)
+
+
+@pytest.mark.parametrize("t_valid", [40, 57, 63])
+def test_masked_istft_matches_jax(t_valid):
+    """Synthesis from the first t_valid frames of a bucket-padded
+    spectrogram (frames past them masked out of the numerator and the
+    window-energy envelope), and the frame mask of the evaluator."""
+    cfg = StftConfig(fs=8000, length=32, overlap=24)  # hop 8, 17 bins
+    rng = np.random.default_rng(t_valid)
+    z = (rng.standard_normal((2, 3, 63, 17))
+         + 1j * rng.standard_normal((2, 3, 63, 17))).astype(np.complex64)
+    got = tstft.istft_scaled_masked(torch.from_numpy(z), t_valid, cfg, 512)
+    want = np.asarray(jstft.istft_scaled_masked(jnp.asarray(z), t_valid,
+                                                cfg, 512))
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+    cropped = tstft.istft_scaled(torch.from_numpy(z[..., :t_valid, :]), cfg,
+                                 512)
+    np.testing.assert_allclose(got.numpy(), cropped.numpy(), atol=2e-5)
+    masked = tstft.mask_frames(torch.from_numpy(z), t_valid).numpy()
+    np.testing.assert_array_equal(masked[..., :t_valid, :],
+                                  z[..., :t_valid, :])
+    assert not masked[..., t_valid:, :].any()

@@ -1,5 +1,6 @@
 """Drive the PyTorch port's serving, training, cascade and CSS paths on one
-GPU.
+GPU, in float32 and in the JAX package's default bfloat16 (with its int8
+DenseBlock decode mode).
 
     python3 chip_smoke.py
 
@@ -48,12 +49,37 @@ Phases (one or more JSON lines each; any failure exits non-zero):
  10. css      StreamingCSS over the 12.3 s request, overlap 0 and 8,000:
               exactly 50 dense_stack, 10 stencil and 1 hermitian_solve
               launches per block, per-block latency
+ 11. lowp-kernels  the bf16 modes of dense_stack and stencil and the int8
+              kernel dense_stack_int8 against their plain versions at the
+              phase-3 shapes, in the working type: bf16-stored outputs
+              within 1e-2 of max-abs (two bf16 ulps), float32 statistics
+              within 1e-4; int8: acc_out bit-identical (the same integer
+              sums), y within one bf16 ulp; times of kernel, plain version
+              and library (cuDNN's bf16 conv; torch._int_mm over the call's
+              im2col matrices for int8, the product only), and of the int8
+              weight-row quantization glue with its launch count
+ 12. bf16-forward  the full-width forward of ModelConfig() (bf16): fused
+              vs the plain bf16 path, exactly 50 dense_stack_bf16 and 10
+              stencil_bf16 launches, bound max(4e-2, 2x the plain path's
+              movement under the 3e-6 perturbation probe)
+ 13. int8-forward  the same model with quant_int8=True: exactly 50
+              dense_stack_int8 and 10 stencil_bf16 launches; against the
+              same composition over the kernels' plain versions (swapped in
+              here only), bound max(INT8_FORWARD_BOUND, 2x that
+              composition's movement under the probe); int8 vs bf16 rms and
+              correlation
+ 14. serve    the phase-5 requests through the bf16 and the int8 model
+ 15. cascade  the bf16 cascade (MISO3 utterance and chunk mode, MISO2
+              joint): 100 dense_stack_bf16, 20 stencil_bf16 and 1
+              hermitian_solve launches per request
+ 16. css      bf16 StreamingCSS blocks: 50 / 10 / 1 launches per block
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Needs one CUDA device; exits 1
 without one.  Bounds (``bound_ms``) are the larger of the call's FLOPs
-over the H100's float32 CUDA-core peak and its bytes (each input read
-once, each output written once) over its memory rate.
+over the H100's peak for the kernel's type (float32 CUDA cores; the dense
+bf16 and int8 tensor-core rates for the bf16 and int8 modes) and its bytes
+(each input read once, each output written once) over its memory rate.
 """
 
 from __future__ import annotations
@@ -70,6 +96,16 @@ import numpy as np
 import torch
 
 BOUND = 1e-4   # kernel vs plain, normalized by the plain output's max-abs
+BF16_BOUND = 1e-2  # a bf16-stored kernel output vs plain: two bf16 ulps
+# full-width bf16 forward, fused vs plain bf16 path (JAX's own bf16 class,
+# tests/test_dense_stack.py:127), unless the plain path's own movement
+# under the PERTURB probe is larger
+BF16_FORWARD_BOUND = 4e-2
+# full-width int8 forward, kernels vs the same composition over the plain
+# versions: the integer sums agree, but a bf16 stencil output one ulp apart
+# flips a quantization step downstream, so two runs differ like two draws
+# of the int8 rounding noise (the int8-vs-bf16 class, reported beside it)
+INT8_FORWARD_BOUND = 2e-1
 CASCADE_BOUND = 1e-3  # fused vs plain beamformed / enhanced waves
 TRAIN_BOUND = 1e-3  # fused vs plain train-step gradients (60 layers deep)
 B, T = 6, 501  # M = 6 circular shifts of one 4 s chunk
@@ -81,9 +117,16 @@ PERTURB = 3e-6  # relative input perturbation of the sensitivity probe
 # the parameters whose gradients come out of stencil_bwd (the fused body)
 BODY = re.compile(r"^(enc[0-4]|enc[0-4]_dense|dec[2-6]|dec[2-6]_dense)\.")
 SEED = 0
-# H100 SXM data sheet at 700 W: float32 outside the tensor cores, HBM3
+# H100 SXM data sheet at 700 W: float32 outside the tensor cores, dense
+# bf16 and int8 tensor-core rates, HBM3
 PEAK_FLOPS = 67e12
+PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12
 PEAK_BYTES = 3.35e12
+# the counted kernel modes of each precision's forward
+MODES = {"float32": ("dense_stack", "stencil"),
+         "bfloat16": ("dense_stack_bf16", "stencil_bf16"),
+         "int8": ("dense_stack_int8", "stencil_bf16")}
 
 
 def fail(msg: str) -> None:
@@ -130,19 +173,33 @@ def tensors_of(values):
             yield v
 
 
-def bound_ms(flops: float, inputs, outputs) -> tuple[float, float, float]:
+def bound_ms(flops: float, inputs, outputs,
+             peak: float = PEAK_FLOPS) -> tuple[float, float, float]:
     """(bound, operations time, bytes time) in ms: each input read once,
-    each output written once."""
+    each output written once; operations at ``peak`` per second."""
     nbytes = sum(t.numel() * t.element_size()
                  for t in (*tensors_of(inputs), *tensors_of(outputs)))
-    t_ops = flops / PEAK_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), t_ops, t_bytes
 
 
-def new_record(name, replaces):
+def expect(mode="float32", dense=0, stencil=0, **other):
+    """The launch counts of a run that launched ``dense`` DenseBlock and
+    ``stencil`` stencil kernels of ``mode`` and ``other``, nothing else."""
+    from misonet_tpu_torch.ops.kernels import COUNTERS
+
+    counts = dict.fromkeys((name for name, _, _ in COUNTERS), 0)
+    d, st = MODES[mode]
+    counts[d] += dense
+    counts[st] += stencil
+    counts.update(other)
+    return counts
+
+
+def new_record(name, replaces, source=None):
     return {"name": name, "route": "cuda",
-            "source": f"misonet_tpu_torch/csrc/{name}.cu",
+            "source": f"misonet_tpu_torch/csrc/{source or name}.cu",
             "replaces": replaces, "launches": 0, "max_abs_err": 0.0,
             "max_norm_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
             "bound_by": None, "library_ms": 0.0, "ops_ms": 0.0,
@@ -168,15 +225,19 @@ def widen(t: torch.Tensor) -> torch.Tensor:
 
 
 def check_kernel(name, kernel, plain, args, record, flops, library,
-                 in_float64=False, phase="kernels", to_record=True):
+                 in_float64=False, phase="kernels", to_record=True,
+                 peak=PEAK_FLOPS, extra=None, reps=10):
     """Compare one kernel call with its plain version; time both and the
-    library call ``library`` (a PyTorch call computing the same function);
-    add the call's bound.  ``in_float64``: the plain version runs on the
+    library call ``library`` (a PyTorch call computing the same function,
+    or None where there is none); add the call's bound at ``peak``
+    operations per second.  Each output is held to BOUND, a bf16-stored
+    one to BF16_BOUND.  ``in_float64``: the plain version runs on the
     inputs widened to float64 for the comparison (its float32 run is then
     reported beside the kernel).  ``to_record``: add the times to the
-    kernel's record (its main-path cases)."""
+    kernel's record (its main-path cases).  ``extra``: more numbers for the
+    case's line; ``reps``: timed calls of the plain version."""
     got = kernel(*args)
-    extra = {}
+    extra = dict(extra or {})
     if in_float64:
         want = plain(*[widen(a) if isinstance(a, torch.Tensor) else
                        [widen(x) for x in a] if isinstance(a, list) else a
@@ -189,32 +250,40 @@ def check_kernel(name, kernel, plain, args, record, flops, library,
     errs = output_errs(name, got, want)
     err = errs[0][0]                 # the first output (sums are ~1e5)
     rel = max(e[1] for e in errs)    # every output, normalized
-    t_plain = cuda_ms(lambda: plain(*args))
+    bounds = [BF16_BOUND if w.dtype == torch.bfloat16 else BOUND
+              for w in tensors_or_none(want) if w is not None]
+    t_plain = cuda_ms(lambda: plain(*args), reps)
     t_kernel = cuda_ms(lambda: kernel(*args))
-    t_lib = cuda_ms(library)
+    t_lib = None if library is None else cuda_ms(library)
     if record["name"] == "stencil_bwd":
         # the wgrad half alone: the same call without input gradients
         extra["wgrad_ms"] = cuda_ms(lambda: kernel(*args[:-1], False))
-    bound, t_ops, t_bytes = bound_ms(flops, args, got)
+    bound, t_ops, t_bytes = bound_ms(flops, args, got, peak)
     print(json.dumps({"phase": phase, "case": name,
                       "max_abs_err": err, "max_norm_err": rel,
-                      "bound": BOUND, "ms": t_kernel, "plain_ms": t_plain,
+                      "norm_errs": [e[1] for e in errs], "bounds": bounds,
+                      "ms": t_kernel, "plain_ms": t_plain,
                       "library_ms": t_lib, "gflop": flops / 1e9,
                       "bound_ms": bound,
                       "bound_by": "operations" if t_ops >= t_bytes
                       else "bytes", **extra}), flush=True)
-    if not rel <= BOUND:
-        fail(f"{name}: normalized error {rel} above {BOUND}")
+    if not all(e[1] <= b for e, b in zip(errs, bounds)):
+        fail(f"{name}: normalized errors {[e[1] for e in errs]} above "
+             f"{bounds}")
     if not to_record:
-        return
+        return got, want
     record["max_abs_err"] = max(record["max_abs_err"], err)
     record["max_norm_err"] = max(record["max_norm_err"], rel)
     record["ms"] += t_kernel
     record["plain_ms"] += t_plain
-    record["library_ms"] += t_lib
+    if t_lib is None or record["library_ms"] is None:
+        record["library_ms"] = None
+    else:
+        record["library_ms"] += t_lib
     record["bound_ms"] += bound
     record["ops_ms"] += t_ops
     record["bytes_ms"] += t_bytes
+    return got, want
 
 
 def tensors_or_none(out):
@@ -320,6 +389,122 @@ def phase_kernels(records):
                                   padding=padding))
 
 
+def int8_library(xs, w, scale, mean):
+    """The yardstick of one int8 call: ``torch._int_mm`` of the call's
+    im2col matrix of quantized activations [B*T*F, 9C] with one batch
+    element's quantized weights [9C, N] (the product only: no
+    quantization, correction, dequantization or epilogue).  Returns (the
+    call, None), or (None, the error) where the library refuses it."""
+    import torch.nn.functional as F
+
+    from misonet_tpu_torch.ops.kernels.dense_stack_int8 import (
+        QS, quantize_rows)
+
+    x = torch.cat([v.float() for v in xs], dim=1)
+    b, c, t, f = x.shape
+    qx = torch.clamp(torch.round(x * scale[:, :, None, None] * QS), -127, 127)
+    a = F.unfold(qx, 3, padding=1).transpose(1, 2).reshape(b * t * f, 9 * c)
+    a = a.to(torch.int8).contiguous()
+    qw, _, _ = quantize_rows(w, scale, mean)
+    m = qw[0].reshape(qw.shape[1], 9 * c).t()    # [9C, N], column-major
+    try:
+        torch._int_mm(a, m)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0]
+    return (lambda: torch._int_mm(a, m)), None
+
+
+def bf16_ulps(got, want):
+    """Largest distance of two bf16 tensors in bf16 ulps (adjacent bf16
+    numbers of one sign differ by one in their 16-bit pattern)."""
+    return (got.view(torch.int16).int() - want.view(torch.int16).int()).abs(
+    ).max().item()
+
+
+def phase_lowp_kernels(records):
+    """The bf16 modes of dense_stack and stencil and the int8 decode kernel
+    against their plain versions at the phase-3 shapes, in the working
+    type.  bf16: bf16-stored outputs within BF16_BOUND, float32 statistics
+    within BOUND.  int8: the same integer sums (acc_out bit-identical), y
+    within one bf16 ulp, statistics within BOUND.  Library: cuDNN's bf16
+    conv; for int8 torch._int_mm over the call's im2col matrices."""
+    import torch.nn.functional as F
+
+    from misonet_tpu_torch.ops.kernels.dense_stack import (
+        dense_stack, dense_stack_plain)
+    from misonet_tpu_torch.ops.kernels.dense_stack_int8 import (
+        dense_stack_int8, dense_stack_int8_plain, quantize_rows)
+    from misonet_tpu_torch.ops.kernels.stencil import stencil, stencil_plain
+    from misonet_tpu_torch.ops.kernels.stencil_bwd import geometry
+
+    bf = torch.bfloat16
+    rng = np.random.default_rng(SEED + 11)
+    glue = records["dense_stack_int8"]
+    glue.update(glue_ms=0.0, glue_launches=None, library_error=None)
+    for name, widths, n, n_fin, f, with_acc in DENSE_CASES:
+        c = sum(widths)
+        xs = [rand(rng, (B, w, T, f)).to(bf) for w in widths]
+        acc = rand(rng, (B, n, T, f)).to(bf) if with_acc else None
+        w = rand(rng, (n, c, 3, 3), scale=1.0 / np.sqrt(9 * c))
+        bias = rand(rng, (n_fin,), scale=0.1)
+        scale = rand(rng, (B, c), 0.5, 1.5)
+        mean = rand(rng, (B, c), -0.5, 0.5)
+        wb = w.to(bf)
+        xn = normalized(xs, scale, mean).to(bf)
+        flops = 2 * conv_macs("dense", B, c, n, T, f)
+        check_kernel(f"dense_stack bf16 {name}", dense_stack,
+                     dense_stack_plain, (xs, acc, wb, bias, scale, mean,
+                                         n_fin),
+                     records["dense_stack_bf16"], flops,
+                     lambda: F.conv2d(xn, wb, padding=1),
+                     phase="lowp-kernels", peak=PEAK_BF16)
+        del xn
+        lib, lib_err = int8_library(xs, w, scale, mean)
+        glue_ms = cuda_ms(lambda: quantize_rows(w, scale, mean))
+        if glue["glue_launches"] is None:
+            prof = profile_call(lambda: quantize_rows(w, scale, mean))
+            glue["glue_launches"] = prof["kernels"]
+        got, want = check_kernel(
+            f"dense_stack_int8 {name}", dense_stack_int8,
+            dense_stack_int8_plain, (xs, acc, w, bias, scale, mean, n_fin),
+            glue, flops, lib, phase="lowp-kernels", peak=PEAK_INT8,
+            extra={"glue_ms": glue_ms, "library_error": lib_err}, reps=3)
+        glue["glue_ms"] += glue_ms
+        glue["library_error"] = glue["library_error"] or lib_err
+        # the kernel's own device time (the wrapper's time above includes
+        # the host-bound row quantization)
+        prof = profile_call(lambda: dense_stack_int8(xs, acc, w, bias, scale,
+                                                     mean, n_fin))
+        dev_ms = prof["ms"]["dense_stack_int8"] + prof["ms"]["reduce_stats"]
+        glue["device_ms"] = glue.get("device_ms", 0.0) + dev_ms
+        ulps = bf16_ulps(got[0], want[0])
+        same = got[3] is None or torch.equal(got[3], want[3])
+        print(json.dumps({"phase": "lowp-kernels", "case": f"int8 {name}",
+                          "kernel_device_ms": dev_ms, "y_max_ulps": ulps,
+                          "acc_out_identical": same}), flush=True)
+        if ulps > 1 or not same:
+            fail(f"dense_stack_int8 {name}: y {ulps} ulps apart, acc_out "
+                 f"identical: {same}")
+
+    for name, mode, c, n, f_in in STENCIL_CASES:
+        wshape = (c, n, 3, 3) if mode in ("up", "final") else (n, c, 3, 3)
+        stats = ([None, None] if mode == "enc0" else
+                 [rand(rng, (B, c), 0.5, 1.5), rand(rng, (B, c), -0.5, 0.5)])
+        x = rand(rng, (B, c, T, f_in)).to(bf)
+        wt = rand(rng, wshape, scale=1.0 / np.sqrt(9 * c)).to(bf)
+        bias = rand(rng, (n,), scale=0.1)
+        xn = normalized([x], *stats).to(bf)
+        stride, padding = geometry(mode)
+        conv = (F.conv_transpose2d if mode in ("up", "final") else F.conv2d)
+        check_kernel(f"stencil bf16 {name}", stencil, stencil_plain,
+                     [x, wt, bias, *stats, mode], records["stencil_bf16"],
+                     2 * conv_macs(mode, B, c, n, T, f_in),
+                     lambda: conv(xn, wt, bias.to(bf), stride=stride,
+                                  padding=padding),
+                     phase="lowp-kernels", peak=PEAK_BF16)
+
+
 def phase_bwd_kernels(records):
     """stencil_bwd against its plain version at the train step's shapes:
     the cotangents of the phase-3 calls at B = 8."""
@@ -382,37 +567,150 @@ def seeded_model(cfg, device, kind="miso1", seed=SEED):
     return model.eval()
 
 
-def phase_forward(model, cfg):
+def forward_input():
+    """The seeded full-width MISO1 input [6, 6, 501, 129] on the card."""
+    rng = np.random.default_rng(SEED + 1)
+    return torch.complex(rand(rng, (B, 6, T, 129)), rand(rng, (B, 6, T, 129)))
+
+
+def moved(x):
+    """``x`` perturbed by PERTURB relative noise (the sensitivity probe)."""
+    noise = torch.randn(x.shape, generator=torch.Generator().manual_seed(
+        SEED + 5)).to(x.device)
+    return x * (1 + PERTURB * noise)
+
+
+def agreement(got, want):
+    """Max-abs and rms error over the reference's max-abs, correlation."""
+    g = torch.view_as_real(got).double()
+    w = torch.view_as_real(want).double()
+    top = w.abs().max().item()
+    corr = torch.corrcoef(torch.stack([g.ravel(), w.ravel()]))[0, 1].item()
+    return {"max_norm_err": (g - w).abs().max().item() / top,
+            "rms_norm_err": (g - w).square().mean().sqrt().item() / top,
+            "corr": corr}
+
+
+def phase_forward(model, cfg, mode="float32", records=None):
+    """The full-width forward: fused against the plain path, exact launch
+    counts.  float32: within BOUND.  bfloat16: within BF16_FORWARD_BOUND,
+    or twice the plain path's own movement under the PERTURB probe where
+    that is larger.  Returns the fused output."""
     from misonet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    rng = np.random.default_rng(SEED + 1)
-    x = torch.complex(rand(rng, (B, 6, T, 129)), rand(rng, (B, 6, T, 129)))
+    x = forward_input()
     plain_cfg = dataclasses.replace(cfg, flat_dense=False)
     with torch.inference_mode():
         reset_launch_counts()
         fused = model(x)
         torch.cuda.synchronize()
         counts = launch_counts()
-        if counts != {"dense_stack": 50, "stencil": 10, "stencil_bwd": 0,
-                      "hermitian_solve": 0}:
-            fail(f"forward launched {counts}, expected 50 dense_stack and "
-                 "10 stencil")
+        if counts != expect(mode, 50, 10):
+            fail(f"{mode} forward launched {counts}, expected "
+                 f"{expect(mode, 50, 10)}")
         t_fused = cuda_ms(lambda: model(x), reps=5)
         model.cfg = plain_cfg
         plain = model(x)
         t_plain = cuda_ms(lambda: model(x), reps=5)
+        sens = (None if mode == "float32" else
+                norm_err(torch.view_as_real(model(moved(x))),
+                         torch.view_as_real(plain))[1])
         model.cfg = cfg
-    if fused.shape != (B, 2, T, 129) or not torch.isfinite(
-            torch.view_as_real(fused)).all():
-        fail(f"forward output {tuple(fused.shape)} not finite/expected")
+    if (fused.shape != (B, 2, T, 129) or fused.dtype != torch.complex64
+            or not torch.isfinite(torch.view_as_real(fused)).all()):
+        fail(f"forward output {tuple(fused.shape)} {fused.dtype} not "
+             "finite/expected")
     err, rel = norm_err(torch.view_as_real(fused), torch.view_as_real(plain))
-    print(json.dumps({"phase": "forward", "shape": list(x.shape),
+    bound = BOUND if sens is None else max(BF16_FORWARD_BOUND, 2 * sens)
+    print(json.dumps({"phase": "forward", "precision": mode,
+                      "shape": list(x.shape),
                       "params": sum(p.numel() for p in model.parameters()),
                       "launches_per_forward": counts, "max_abs_err": err,
-                      "max_norm_err": rel, "bound": BOUND,
+                      "max_norm_err": rel, "bound": bound,
+                      "plain_sensitivity": sens, "perturbation": PERTURB,
+                      **agreement(fused, plain),
                       "fused_ms": t_fused, "plain_ms": t_plain}), flush=True)
-    if not rel <= BOUND:
-        fail(f"forward: fused vs plain normalized error {rel} above {BOUND}")
+    if not rel <= bound:
+        fail(f"{mode} forward: fused vs plain normalized error {rel} above "
+             f"{bound}")
+    if records is not None:
+        for name in MODES[mode]:
+            records[name]["launches"] = counts[name]
+    with torch.inference_mode():
+        prof = profile_call(lambda: model(x))
+    print(json.dumps({"phase": "forward", "precision": mode,
+                      "profile": "one fused forward", **prof}), flush=True)
+    return fused
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The fused modules over the kernels' plain versions (the reference
+    composition of the int8 forward on the card)."""
+    from misonet_tpu_torch.ops.kernels import flat_grad
+    from misonet_tpu_torch.ops.kernels.dense_stack_int8 import (
+        dense_stack_int8_plain)
+    from misonet_tpu_torch.ops.kernels.stencil import stencil_plain
+
+    saved = flat_grad.dense_stack_int8, flat_grad.stencil
+    flat_grad.dense_stack_int8 = dense_stack_int8_plain
+    flat_grad.stencil = stencil_plain
+    try:
+        yield
+    finally:
+        flat_grad.dense_stack_int8, flat_grad.stencil = saved
+
+
+def phase_forward_int8(model, cfg, bf16_out, records):
+    """The full-width forward with quant_int8=True: exactly 50
+    dense_stack_int8 and 10 bf16 stencil launches; against the same
+    composition over the kernels' plain versions, within INT8_FORWARD_BOUND
+    or twice that composition's own movement under the PERTURB probe; its
+    distance to the bf16 forward reported."""
+    from misonet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    x = forward_input()
+    model.cfg = dataclasses.replace(cfg, quant_int8=True)
+    with torch.inference_mode():
+        reset_launch_counts()
+        fused = model(x)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        if counts != expect("int8", 50, 10):
+            fail(f"int8 forward launched {counts}, expected "
+                 f"{expect('int8', 50, 10)}")
+        t_fused = cuda_ms(lambda: model(x), reps=5)
+        with plain_kernels():
+            reset_launch_counts()
+            plain = model(x)
+            sens = norm_err(torch.view_as_real(model(moved(x))),
+                            torch.view_as_real(plain))[1]
+            if any(launch_counts().values()):
+                fail(f"the int8 reference composition launched "
+                     f"{launch_counts()}")
+    model.cfg = cfg
+    if (fused.dtype != torch.complex64
+            or not torch.isfinite(torch.view_as_real(fused)).all()):
+        fail("int8 forward output not finite/complex64")
+    err, rel = norm_err(torch.view_as_real(fused), torch.view_as_real(plain))
+    bound = max(INT8_FORWARD_BOUND, 2 * sens)
+    print(json.dumps({"phase": "forward", "precision": "int8",
+                      "launches_per_forward": counts, "max_abs_err": err,
+                      "max_norm_err": rel, "bound": bound,
+                      "plain_sensitivity": sens, "perturbation": PERTURB,
+                      **agreement(fused, plain),
+                      "int8_vs_bf16": agreement(fused, bf16_out),
+                      "fused_ms": t_fused}), flush=True)
+    if not rel <= bound:
+        fail(f"int8 forward: kernels vs plain composition normalized error "
+             f"{rel} above {bound}")
+    records["dense_stack_int8"]["launches"] = counts["dense_stack_int8"]
+    model.cfg = dataclasses.replace(cfg, quant_int8=True)
+    with torch.inference_mode():
+        prof = profile_call(lambda: model(x))
+    model.cfg = cfg
+    print(json.dumps({"phase": "forward", "precision": "int8",
+                      "profile": "one fused forward", **prof}), flush=True)
 
 
 def synth_request(rng, seconds, fs=8000, mics=6):
@@ -437,11 +735,14 @@ def synth_request(rng, seconds, fs=8000, mics=6):
     return mix, refs
 
 
-def phase_serve(model, cfg, device_line, records):
+def phase_serve(model, cfg, device_line, records, mode="float32"):
     from misonet_tpu_torch.config import DatasetConfig, StftConfig
     from misonet_tpu_torch.inference.evaluate import CascadeEvaluator
     from misonet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
+    """The three synthetic requests through CascadeEvaluator.process in
+    MISO1-only mode at ``mode``'s precision: exact launch counts, latency;
+    in float32 also the 5 s request on the plain path."""
     ds = DatasetConfig()
     ev = CascadeEvaluator(model, StftConfig(), ds, beamform_utterance=False)
     rng = np.random.default_rng(SEED + 2)
@@ -462,7 +763,8 @@ def phase_serve(model, cfg, device_line, records):
         ok = (res.separated.shape == refs.shape
               and bool(np.isfinite(res.separated).all())
               and score is not None and bool(np.isfinite(score)))
-        print(json.dumps({"phase": "serve", "audio_s": secs,
+        print(json.dumps({"phase": "serve", "precision": mode,
+                          "audio_s": secs,
                           "chunks": -(-mix.shape[0] // ds.chunk_samples),
                           "latency_s": dt, "audio_s_per_s": secs / dt,
                           "pit_si_sdr_db": score, "device": device_line}),
@@ -471,12 +773,15 @@ def phase_serve(model, cfg, device_line, records):
             fail(f"serve: request of {secs} s gave shape "
                  f"{res.separated.shape}, score {score}")
     n_req = len(requests)
-    if counts != {"dense_stack": 50 * n_req, "stencil": 10 * n_req,
-                  "stencil_bwd": 0, "hermitian_solve": 0}:
-        fail(f"serve launched {counts}, expected {50 * n_req} dense_stack "
-             f"and {10 * n_req} stencil ({n_req} requests)")
-    for name, n in counts.items():
-        records[name]["launches_serve"] = n
+    print(json.dumps({"phase": "serve", "precision": mode,
+                      "launches": counts}), flush=True)
+    if counts != expect(mode, 50 * n_req, 10 * n_req):
+        fail(f"{mode} serve launched {counts}, expected "
+             f"{expect(mode, 50 * n_req, 10 * n_req)} ({n_req} requests)")
+    for name in MODES[mode]:
+        records[name].setdefault("launches_serve", counts[name])
+    if mode != "float32":
+        return
 
     # the shortest request again on the plain path: same separated waves
     model.cfg = dataclasses.replace(cfg, flat_dense=False)
@@ -536,8 +841,9 @@ def profile_call(fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    groups = {"dense_stack": 0.0, "stencil": 0.0, "stencil_bwd": 0.0,
-              "hermitian_solve": 0.0, "reduce_stats": 0.0, "other": 0.0}
+    groups = {"dense_stack": 0.0, "dense_stack_int8": 0.0, "stencil": 0.0,
+              "stencil_bwd": 0.0, "hermitian_solve": 0.0,
+              "reduce_stats": 0.0, "other": 0.0}
     calls = dict.fromkeys(groups, 0)
     other = {}
     ranges = {}
@@ -563,7 +869,9 @@ def profile_call(fn):
             us = e.self_cuda_time_total
         kernels += e.count
         name = e.key
-        if "dense_stack_kernel" in name:
+        if "dense_stack_int8_kernel" in name:
+            group = "dense_stack_int8"
+        elif "dense_stack_kernel" in name:
             group = "dense_stack"
         elif "stencil_kernel" in name:
             group = "stencil"
@@ -712,8 +1020,8 @@ def phase_train(cfg, device, records):
     times, metrics = step_ms(step, state, batch, TRAIN_STEPS)
     counts = launch_counts()
     peak_fused = torch.cuda.max_memory_allocated() / 2**30
-    want = {"dense_stack": 50 * TRAIN_STEPS, "stencil": 10 * TRAIN_STEPS,
-            "stencil_bwd": 60 * TRAIN_STEPS, "hermitian_solve": 0}
+    want = expect("float32", 50 * TRAIN_STEPS, 10 * TRAIN_STEPS,
+                  stencil_bwd=60 * TRAIN_STEPS)
     losses = [m["loss"] for m in metrics]
     print(json.dumps({"phase": "train", "path": "fused", "steps": TRAIN_STEPS,
                       "launches": counts, "losses": losses,
@@ -723,8 +1031,8 @@ def phase_train(cfg, device, records):
         fail(f"train launched {counts}, expected {want}")
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         fail(f"train: loss not finite and falling: {losses}")
-    for name, n in counts.items():
-        records[name]["launches"] = n
+    for name in ("dense_stack", "stencil", "stencil_bwd"):
+        records[name]["launches"] = counts[name]
 
     # the plain path's step time and memory
     popt = make_optimizer(opt_cfg, plain.parameters())
@@ -835,11 +1143,11 @@ def check_result(name, res, refs, stages):
                  f"score {res.si_sdr.get(key)}")
 
 
-def phase_cascade(cfg, device, device_line, records):
+def phase_cascade(cfg, device, device_line, records, mode="float32"):
     """The cascade at full width: MISO1 + MISO3 in both beamforming modes
     over the phase-5 requests, MISO1 + MISO2 (joint) in chunk mode, exact
-    launch counts per request, the plain path on the 5 s request, and a
-    profile of one 12.3 s utterance-mode request."""
+    launch counts per request; in float32 also the plain path on the 5 s
+    request and a profile of one 12.3 s utterance-mode request."""
     from misonet_tpu_torch.beamforming.mvdr import principal_eigenvector
     from misonet_tpu_torch.config import DatasetConfig, StftConfig
     from misonet_tpu_torch.inference.evaluate import CascadeEvaluator
@@ -853,18 +1161,17 @@ def phase_cascade(cfg, device, device_line, records):
     requests = [synth_request(rng, s) for s in REQUEST_S]
     stages = [("separated", "miso1"), ("beamformed", "beamform"),
               ("enhanced", "enhanced")]
-    want = {"dense_stack": 100, "stencil": 20, "stencil_bwd": 0,
-            "hermitian_solve": 1}
+    want = expect(mode, 100, 20, hermitian_solve=1)
     runs = [("utterance", "miso3", miso3, False, requests),
             ("chunk", "miso3", miso3, False, requests),
             ("chunk", "miso2", miso2, True, requests[-1:])]
     evaluators = {}
     solves = 0
-    for mode, enh_name, enh, joint, reqs in runs:
+    for bf_mode, enh_name, enh, joint, reqs in runs:
         ev = CascadeEvaluator(miso1, stft_cfg, ds, enhance_model=enh,
                               joint=joint,
-                              beamform_utterance=mode == "utterance")
-        evaluators[mode, enh_name] = ev
+                              beamform_utterance=bf_mode == "utterance")
+        evaluators[bf_mode, enh_name] = ev
         ev.process(*requests[0])   # warm-up: cuFFT plans, allocator
         torch.cuda.synchronize()
         for mix, refs in reqs:
@@ -876,24 +1183,27 @@ def phase_cascade(cfg, device, device_line, records):
             dt = time.perf_counter() - t0
             counts = launch_counts()
             solves += counts["hermitian_solve"]
-            print(json.dumps({"phase": "cascade", "mode": mode,
+            print(json.dumps({"phase": "cascade", "precision": mode,
+                              "mode": bf_mode,
                               "enhance": enh_name, "audio_s": secs,
                               "chunks": -(-mix.shape[0] // ds.chunk_samples),
                               "latency_s": dt, "audio_s_per_s": secs / dt,
                               "pit_si_sdr_db": res.si_sdr,
                               "launches": counts, "device": device_line}),
                   flush=True)
-            check_result(f"cascade {mode} {enh_name} {secs} s", res, refs,
-                         stages)
+            check_result(f"cascade {mode} {bf_mode} {enh_name} {secs} s",
+                         res, refs, stages)
             if counts != want:
-                fail(f"cascade {mode} {enh_name}: launched {counts}, "
-                     f"expected {want}")
+                fail(f"cascade {mode} {bf_mode} {enh_name}: launched "
+                     f"{counts}, expected {want}")
+    if mode != "float32":
+        return
     records["hermitian_solve"]["launches"] = solves
 
     # the 5 s request on the plain path: plain modules, plain solve
     mix, refs = requests[0]
-    for mode in ("utterance", "chunk"):
-        ev = evaluators[mode, "miso3"]
+    for bf_mode in ("utterance", "chunk"):
+        ev = evaluators[bf_mode, "miso3"]
         fused = ev.process(mix, refs)
         with plain_path([miso1, miso3]):
             reset_launch_counts()
@@ -903,16 +1213,16 @@ def phase_cascade(cfg, device, device_line, records):
             # mixture perturbed by PERTURB relative noise
             noise = np.random.default_rng(SEED + 9).standard_normal(
                 mix.shape).astype(np.float32)
-            moved = ev.process(mix * (1 + PERTURB * noise), refs)
+            shifted = ev.process(mix * (1 + PERTURB * noise), refs)
         errs, sens = {}, {}
         for stage in ("separated", "beamformed", "enhanced"):
             ref = torch.from_numpy(getattr(plain, stage))
             errs[stage] = norm_err(torch.from_numpy(getattr(fused, stage)),
                                    ref)[1]
-            sens[stage] = norm_err(torch.from_numpy(getattr(moved, stage)),
+            sens[stage] = norm_err(torch.from_numpy(getattr(shifted, stage)),
                                    ref)[1]
         print(json.dumps({"phase": "cascade", "check": f"fused vs plain, "
-                          f"5 s, {mode} mode", "max_norm_err": errs,
+                          f"5 s, {bf_mode} mode", "max_norm_err": errs,
                           "bound": CASCADE_BOUND,
                           "plain_sensitivity": sens,
                           "perturbation": PERTURB,
@@ -922,7 +1232,7 @@ def phase_cascade(cfg, device, device_line, records):
         if any(plain_counts.values()):
             fail(f"cascade: the plain path launched {plain_counts}")
         if not max(errs.values()) <= CASCADE_BOUND:
-            fail(f"cascade {mode}: fused vs plain {errs} above "
+            fail(f"cascade {bf_mode}: fused vs plain {errs} above "
                  f"{CASCADE_BOUND}")
 
     # where one 12.3 s utterance-mode request's time goes
@@ -946,10 +1256,10 @@ def phase_cascade(cfg, device, device_line, records):
                                            reps=5)}), flush=True)
 
 
-def phase_css(cfg, device, device_line):
+def phase_css(cfg, device, device_line, mode="float32"):
     """StreamingCSS over the 12.3 s request, edge to edge and cross-faded:
-    exactly 50 dense_stack, 10 stencil and 1 hermitian_solve launches per
-    block."""
+    exactly 50 dense_stack, 10 stencil (of ``mode``) and 1 hermitian_solve
+    launches per block."""
     from misonet_tpu_torch.config import DatasetConfig, StftConfig
     from misonet_tpu_torch.inference.css import StreamingCSS
     from misonet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
@@ -970,9 +1280,9 @@ def phase_css(cfg, device, device_line):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counts = launch_counts()
-        want = {"dense_stack": 50 * blocks, "stencil": 10 * blocks,
-                "stencil_bwd": 0, "hermitian_solve": blocks}
-        print(json.dumps({"phase": "css", "overlap": overlap,
+        want = expect(mode, 50 * blocks, 10 * blocks, hermitian_solve=blocks)
+        print(json.dumps({"phase": "css", "precision": mode,
+                          "overlap": overlap,
                           "blocks": blocks, "audio_s": mix.shape[0] / ds.fs,
                           "latency_s": dt, "block_latency_s": dt / blocks,
                           "launches": counts, "device": device_line}),
@@ -982,7 +1292,8 @@ def phase_css(cfg, device, device_line):
                 fail(f"css overlap {overlap}: {k} {v.shape} not finite/"
                      "expected")
         if counts != want:
-            fail(f"css overlap {overlap}: launched {counts}, expected {want}")
+            fail(f"css {mode} overlap {overlap}: launched {counts}, "
+                 f"expected {want}")
 
 
 def main() -> int:
@@ -1021,20 +1332,30 @@ def main() -> int:
 
     # 3. kernels
     records = {
-        name: new_record(name, replaces)
-        for name, replaces in [
-            ("dense_stack", "misonet_tpu/ops/pallas/dense_stack.py:316"),
-            ("stencil", "misonet_tpu/ops/pallas/stencil_flat.py:242"),
-            ("stencil_bwd", "misonet_tpu/ops/pallas/stencil_bwd.py:300"),
-            ("hermitian_solve", "misonet_tpu/ops/pallas/mvdr_solve.py:93"),
+        name: new_record(name, replaces, source)
+        for name, replaces, source in [
+            ("dense_stack", "misonet_tpu/ops/pallas/dense_stack.py:316",
+             None),
+            ("stencil", "misonet_tpu/ops/pallas/stencil_flat.py:242", None),
+            ("stencil_bwd", "misonet_tpu/ops/pallas/stencil_bwd.py:300",
+             None),
+            ("hermitian_solve", "misonet_tpu/ops/pallas/mvdr_solve.py:93",
+             None),
+            ("dense_stack_bf16", "misonet_tpu/ops/pallas/dense_stack.py:316",
+             "dense_stack"),
+            ("stencil_bf16", "misonet_tpu/ops/pallas/stencil_flat.py:242",
+             "stencil"),
+            ("dense_stack_int8", "misonet_tpu/ops/pallas/dense_stack.py:357",
+             None),
         ]
     }
     seconds = {"build": time.perf_counter() - t0}
 
-    def timed(name, fn, *args):
+    def timed(name, fn, *args, **kw):
         t = time.perf_counter()
-        fn(*args)
+        out = fn(*args, **kw)
         seconds[name] = time.perf_counter() - t
+        return out
 
     timed("kernels", phase_kernels, records)
 
@@ -1061,11 +1382,37 @@ def main() -> int:
 
     # 10. css
     timed("css", phase_css, cfg, device, smi)
+
+    # 11. lowp-kernels: the bf16 modes and the int8 kernel
+    timed("lowp-kernels", phase_lowp_kernels, records)
+
+    # 12-13. the JAX package's default model (bf16) and its int8 decode
+    bf16_cfg = ModelConfig()
+    model = seeded_model(bf16_cfg, device)
+    bf16_out = timed("bf16-forward", phase_forward, model, bf16_cfg,
+                     "bfloat16", records)
+    timed("int8-forward", phase_forward_int8, model, bf16_cfg, bf16_out,
+          records)
+    del bf16_out
+
+    # 14. serving in bf16 and int8
+    timed("bf16-serve", phase_serve, model, bf16_cfg, smi, records,
+          "bfloat16")
+    int8_cfg = ModelConfig(quant_int8=True)
+    model.cfg = int8_cfg
+    timed("int8-serve", phase_serve, model, int8_cfg, smi, records, "int8")
+    del model
+
+    # 15-16. the bf16 cascade and CSS
+    timed("bf16-cascade", phase_cascade, bf16_cfg, device, smi, records,
+          "bfloat16")
+    timed("bf16-css", phase_css, bf16_cfg, device, smi, "bfloat16")
     print(json.dumps({"phase": "timing", "seconds": seconds}), flush=True)
 
     # every time is the sum over that kernel's main-path cases in phase 3,
-    # 6 or 8; launches are those of the train path's run (phase 7), and of
-    # the cascade's requests (phase 9) for hermitian_solve
+    # 6, 8 or 11; launches are those of the train path's run (phase 7), of
+    # the cascade's requests (phase 9) for hermitian_solve, and of the bf16
+    # and int8 forwards (phases 12-13) for the bf16 and int8 modes
     for r in records.values():
         r["bound_by"] = ("operations" if r.pop("ops_ms") >= r.pop("bytes_ms")
                          else "bytes")

@@ -3,9 +3,9 @@ misonet_tpu/config.py that the port uses).
 
 Fields and defaults are the JAX package's, verbatim, so the same values
 mean the same model, optimizer and run; the port keeps its own copy so that
-it imports nothing of the JAX package.  Options the port does not implement
-yet (``compute_dtype="bfloat16"``, ``quant_int8``, ``sequence_parallel``)
-are refused where a model is built (``models.miso.check_config``).
+it imports nothing of the JAX package.  The option the port does not
+implement yet (``sequence_parallel``) is refused where a model is built
+(``models.miso.check_config``).
 """
 
 from __future__ import annotations
@@ -99,15 +99,16 @@ class ModelConfig:
     tcn_repeats: int = 2        # R (model.py:31)
     tcn_blocks: int = 7         # X, dilations 2^0..2^6
     tcn_channels: int = 128
-    # Conv compute precision.  The port computes in float32 only and
-    # refuses the default; pass compute_dtype="float32".
+    # Conv compute precision: "bfloat16" (activations stored in bf16,
+    # f32 accumulation and statistics) or "float32"; parameters stay f32.
     compute_dtype: str = "bfloat16"
     # Run the U-Net body at levels 0-4 and their decoder mirrors over the
     # fused CUDA kernels (models/flat_dense.py).  "auto": on a CUDA input
     # with at least 7 levels; True forces it (raising where it cannot
     # run); False runs the plain modules.
     flat_dense: bool | str = "auto"
-    # int8 DenseBlock decode (not ported yet: refused).
+    # int8 DenseBlock decode on the fused path of a bfloat16 model
+    # (inference only; ignored in float32 and by the plain modules).
     quant_int8: bool = False
     # Sequence-parallel TCN over a device mesh (not ported yet: refused).
     sequence_parallel: bool = False

@@ -1,6 +1,13 @@
 // Shared pieces of the port's direct-convolution kernels (dense_stack.cu,
-// stencil.cu): the block tiling constants, the shared-memory weight
-// staging, the ELU, and the two-pass InstanceNorm statistics.
+// stencil.cu, dense_stack_int8.cu): the block tiling constants, the
+// shared-memory weight staging, the ELU, the two-pass InstanceNorm
+// statistics, and the loads and stores of the two storage types.
+//
+// Storage types.  A kernel templated on T in {float, __nv_bfloat16} loads
+// T, computes in float32 and stores T.  In the bfloat16 mode (the JAX
+// package's precise=False) every operand of a product is a bfloat16 value
+// (round_as<T>), so each product is exact in float32 and the sums run in
+// float32, as the TPU kernels' bf16 x bf16 -> f32 dots do.
 //
 // Tiling.  A block computes NB = 32 output channels at POS_TILE = 256
 // positions of one batch element's flattened [T, F] output plane.  Its
@@ -16,6 +23,7 @@
 // so the statistics are the same from run to run (no atomics).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -34,14 +42,38 @@ __device__ __forceinline__ float elu(float z) {
   return z > 0.f ? z : expm1f(z);
 }
 
+// Read-only loads of either storage type, widened to float32.
+__device__ __forceinline__ float ldg_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_f32(const __nv_bfloat16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(
+      __ldg(reinterpret_cast<const unsigned short*>(p))));
+}
+
+// Stores of a float32 value in either storage type (round to nearest even).
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// v rounded to the precision of T (the identity for float).
+template <typename T>
+__device__ __forceinline__ float round_as(float v);
+template <>
+__device__ __forceinline__ float round_as<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ float round_as<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 // ws[k][tap][nn] (nn < NB) = w[n0 + nn, c_begin + k, tap] for a weight
 // tensor laid out [N, C, 3, 3], or w[c_begin + k, n0 + nn, tap] for one
 // laid out [C, N, 3, 3] (TRANSPOSED: torch's ConvTranspose2d weight, read
 // as it is); zero for channels past N or past the chunk of CK.
-// Consecutive threads read consecutive floats of w in both layouts.
-template <int CK, int THREADS, bool TRANSPOSED = false>
+// Consecutive threads read consecutive values of w in both layouts; W is
+// the weights' storage type.
+template <int CK, int THREADS, bool TRANSPOSED = false, typename W>
 __device__ __forceinline__ void stage_weights(float (*ws)[9][WS_ROW],
-                                              const float* __restrict__ w,
+                                              const W* __restrict__ w,
                                               int N, int C, int n0,
                                               int c_begin, int ck) {
   for (int i = threadIdx.x; i < CK * 9 * NB; i += THREADS) {
@@ -54,7 +86,7 @@ __device__ __forceinline__ void stage_weights(float (*ws)[9][WS_ROW],
     if (n < N && k < ck) {
       const size_t row = TRANSPOSED ? (size_t)(c_begin + k) * N + n
                                     : (size_t)n * C + c_begin + k;
-      v = w[row * 9 + tap];
+      v = ldg_f32(w + row * 9 + tap);
     }
     ws[k][tap][nn] = v;
   }

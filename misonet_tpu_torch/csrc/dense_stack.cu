@@ -1,9 +1,11 @@
 // dense_stack: one input-grouped ("stacked") DenseBlock call on Hopper.
 //
 // Replaces misonet_tpu/ops/pallas/dense_stack.py::dense_stack_flat (its
-// Pallas `_kernel`), float32 ("precise") mode.  For the newly available
-// source tensor(s) x_s (1 or 2 raw tensors [B, c_i, T, F]; the decoder's skip
-// concat stays logical) it computes
+// Pallas `_kernel`) in its float32 ("precise") and bfloat16 (precise=False,
+// the JAX package's default) modes; the int8 decode mode is
+// dense_stack_int8.cu.  For the newly available source tensor(s) x_s (1 or
+// 2 raw tensors [B, c_i, T, F]; the decoder's skip concat stays logical) it
+// computes
 //
 //   z = conv3x3_SAME(normalize(x_s), w_stack) (+ acc_in)
 //   y       = ELU(z[:n_fin] + bias)          -> [B, n_fin, T, F]
@@ -16,8 +18,18 @@
 // framing, lane rotations and pack_plan of the TPU version do not exist
 // here: tensors stay plain NCHW.
 //
-// Bound on the H100: float32 FMA issue (no tensor cores in this version;
-// N = 24..192 channels and K = 9 * (24..64) per call).  So the inner loop
+// Modes (template T): float32 throughout, or bfloat16 storage with the TPU
+// kernel's rounding points: sources, weights, acc_in/acc_out and y are
+// bfloat16; the normalized input is rounded to bfloat16 (the TPU kernel's
+// bf16 patch); sums and the epilogue run in float32; the statistics come
+// from the float32 y before it is rounded for the store.
+//
+// Bound on the H100: float32 FMA throughput (no tensor cores in this
+// version, in either mode; N = 24..192 channels and K = 9 * (24..64) per
+// call).  At the bf16 tensor-core rate the bf16 call would be bound by its
+// bytes (the partials dominate them); on CUDA cores both modes do the same
+// float32 FMAs, so the bf16 mode saves bytes, not instructions.  So the
+// inner loop
 // is kept to FMAs: per block, each chunk of CK source channels is staged in
 // shared memory already normalized, as the flat run of input rows the
 // tile's outputs read (tile rows plus one above and below, zeros outside
@@ -47,18 +59,19 @@ constexpr int MIN_BLOCKS = 4;          // per SM: caps registers at 64
 // positions spans, plus one row above and one below.
 inline int stage_floats(int F) { return ((POS_TILE - 1) / F + 4) * F; }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-dense_stack_kernel(const float* __restrict__ x0, int c0,
-                   const float* __restrict__ x1, int c1,
+dense_stack_kernel(const T* __restrict__ x0, int c0,
+                   const T* __restrict__ x1, int c1,
                    const float* __restrict__ scale,
                    const float* __restrict__ mean,
-                   const float* __restrict__ w,
+                   const T* __restrict__ w,
                    const float* __restrict__ bias,
-                   const float* __restrict__ acc_in,
-                   float* __restrict__ y,
-                   float* __restrict__ acc_out,
+                   const T* __restrict__ acc_in,
+                   T* __restrict__ y,
+                   T* __restrict__ acc_out,
                    float* __restrict__ part,
-                   int T, int F, int N, int n_fin, int xs_ch) {
+                   int Tn, int F, int N, int n_fin, int xs_ch) {
   extern __shared__ __align__(16) float smem[];
   float (*ws)[9][WS_ROW] = reinterpret_cast<float (*)[9][WS_ROW]>(smem);
   float* xs = smem + CK * 9 * WS_ROW;  // CK staged channels of xs_ch floats
@@ -69,7 +82,7 @@ dense_stack_kernel(const float* __restrict__ x0, int c0,
   const int b = blockIdx.z;
   const int B = gridDim.z;
   const int C = c0 + c1;
-  const int TF = T * F;
+  const int TF = Tn * F;
 
   // staged run: rows r0-1 .. r1+1 of the plane, flat from index g0
   const int p0 = tile * POS_TILE;
@@ -98,7 +111,7 @@ dense_stack_kernel(const float* __restrict__ x0, int c0,
     for (int j = 0; j < PT; ++j) acc[i][j] = 0.f;
 
   for (int s = 0; s < 2; ++s) {
-    const float* xsrc = s ? x1 : x0;
+    const T* xsrc = s ? x1 : x0;
     const int cs = s ? c1 : c0;
     const int coff = s ? c0 : 0;
     for (int cb = 0; cb < cs; cb += CK) {
@@ -108,11 +121,13 @@ dense_stack_kernel(const float* __restrict__ x0, int c0,
       for (int k = 0; k < ck; ++k) {
         const float sc = scale[b * C + coff + cb + k];
         const float mu = mean[b * C + coff + cb + k];
-        const float* xp = xsrc + ((size_t)b * cs + cb + k) * TF;
+        const T* xp = xsrc + ((size_t)b * cs + cb + k) * TF;
         float* dst = xs + k * xs_ch;
         for (int i = threadIdx.x; i < n_stage; i += THREADS) {
           const int gi = g0 + i;
-          dst[i] = (gi >= 0 && gi < TF) ? (__ldg(xp + gi) - mu) * sc : 0.f;
+          dst[i] = (gi >= 0 && gi < TF)
+                       ? round_as<T>((ldg_f32(xp + gi) - mu) * sc)
+                       : 0.f;
         }
       }
       __syncthreads();
@@ -154,14 +169,15 @@ dense_stack_kernel(const float* __restrict__ x0, int c0,
     for (int j = 0; j < PT; ++j) {
       if (!pv[j]) continue;
       float z = acc[i][j];
-      if (acc_in) z += acc_in[((size_t)b * N + n) * TF + pos[j]];
+      if (acc_in) z += ldg_f32(acc_in + ((size_t)b * N + n) * TF + pos[j]);
       if (n < n_fin) {
         const float v = elu(z + bias[n]);
-        y[((size_t)b * n_fin + n) * TF + pos[j]] = v;
+        store(y + ((size_t)b * n_fin + n) * TF + pos[j], v);
         su[i] += v;
         sq[i] += v * v;
       } else {
-        acc_out[((size_t)b * (N - n_fin) + (n - n_fin)) * TF + pos[j]] = z;
+        store(acc_out + ((size_t)b * (N - n_fin) + (n - n_fin)) * TF + pos[j],
+              z);
       }
     }
   }
@@ -169,27 +185,15 @@ dense_stack_kernel(const float* __restrict__ x0, int c0,
     block_stats<THREADS>(su, sq, part, b, B, n0, n_fin, tile, gridDim.x);
 }
 
-}  // namespace
-}  // namespace misonet
-
-// C entry point.  All tensors float32, contiguous, on the current device:
-//   x0 [B, c0, T, F], x1 [B, c1, T, F] or NULL (c1 = 0),
-//   scale, mean [B, c0 + c1], w [N, c0 + c1, 3, 3], bias [n_fin],
-//   acc_in [B, N, T, F] or NULL, y [B, n_fin, T, F],
-//   acc_out [B, N - n_fin, T, F] or NULL when N == n_fin,
-//   part [2, B, n_fin, ntiles] scratch with ntiles = ceil(T*F / 256),
-//   sums, sqs [B, n_fin].
-// Returns cudaGetLastError() after the launches (0 on success).
-extern "C" int misonet_dense_stack(const float* x0, int c0, const float* x1,
-                                   int c1, const float* scale,
-                                   const float* mean, const float* w,
-                                   const float* bias, const float* acc_in,
-                                   float* y, float* acc_out, float* part,
-                                   float* sums, float* sqs, int B, int T,
-                                   int F, int N, int n_fin, void* stream) {
-  using namespace misonet;
+// Launch both passes for storage type T (see the C entry points below).
+template <typename T>
+int launch_dense_stack(const T* x0, int c0, const T* x1, int c1,
+                       const float* scale, const float* mean, const T* w,
+                       const float* bias, const T* acc_in, T* y, T* acc_out,
+                       float* part, float* sums, float* sqs, int B, int Tn,
+                       int F, int N, int n_fin, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int ntiles = (T * F + POS_TILE - 1) / POS_TILE;
+  const int ntiles = (Tn * F + POS_TILE - 1) / POS_TILE;
   const dim3 grid(ntiles, (N + NB - 1) / NB, B);
   const int xs_ch = stage_floats(F);
   // weights, staged channels, and slack after the last channel: the masked
@@ -197,15 +201,51 @@ extern "C" int misonet_dense_stack(const float* x0, int c0, const float* x1,
   // their channel's run (into the weights before it or this slack)
   const size_t smem = (CK * 9 * WS_ROW + CK * xs_ch + 4) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      dense_stack_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dense_stack_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dense_stack_kernel<<<grid, THREADS, smem, st>>>(
-      x0, c0, x1, c1, scale, mean, w, bias, acc_in, y, acc_out, part, T, F,
+  dense_stack_kernel<T><<<grid, THREADS, smem, st>>>(
+      x0, c0, x1, c1, scale, mean, w, bias, acc_in, y, acc_out, part, Tn, F,
       N, n_fin, xs_ch);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   return (int)launch_reduce_stats(part, sums, sqs, B * n_fin, ntiles, st);
+}
+
+}  // namespace
+}  // namespace misonet
+
+// C entry points.  All tensors contiguous, on the current device; x0, x1,
+// w, acc_in, y and acc_out float32 (misonet_dense_stack) or bfloat16
+// (misonet_dense_stack_bf16), scale, mean, bias, part, sums and sqs float32:
+//   x0 [B, c0, T, F], x1 [B, c1, T, F] or NULL (c1 = 0),
+//   scale, mean [B, c0 + c1], w [N, c0 + c1, 3, 3], bias [n_fin],
+//   acc_in [B, N, T, F] or NULL, y [B, n_fin, T, F],
+//   acc_out [B, N - n_fin, T, F] or NULL when N == n_fin,
+//   part [2, B, n_fin, ntiles] scratch with ntiles = ceil(T*F / 256),
+//   sums, sqs [B, n_fin].
+// Return cudaGetLastError() after the launches (0 on success).
+extern "C" int misonet_dense_stack(const float* x0, int c0, const float* x1,
+                                   int c1, const float* scale,
+                                   const float* mean, const float* w,
+                                   const float* bias, const float* acc_in,
+                                   float* y, float* acc_out, float* part,
+                                   float* sums, float* sqs, int B, int T,
+                                   int F, int N, int n_fin, void* stream) {
+  return misonet::launch_dense_stack(x0, c0, x1, c1, scale, mean, w, bias,
+                                     acc_in, y, acc_out, part, sums, sqs, B,
+                                     T, F, N, n_fin, stream);
+}
+
+extern "C" int misonet_dense_stack_bf16(
+    const __nv_bfloat16* x0, int c0, const __nv_bfloat16* x1, int c1,
+    const float* scale, const float* mean, const __nv_bfloat16* w,
+    const float* bias, const __nv_bfloat16* acc_in, __nv_bfloat16* y,
+    __nv_bfloat16* acc_out, float* part, float* sums, float* sqs, int B,
+    int T, int F, int N, int n_fin, void* stream) {
+  return misonet::launch_dense_stack(x0, c0, x1, c1, scale, mean, w, bias,
+                                     acc_in, y, acc_out, part, sums, sqs, B,
+                                     T, F, N, n_fin, stream);
 }
 
 // The tiling constant the wrapper needs to size the partials scratch.

@@ -1,7 +1,8 @@
 // stencil: the U-Net body's 3x3 trunk / transpose convs on Hopper.
 //
 // Replaces misonet_tpu/ops/pallas/stencil_flat.py::stencil_layer_flat (its
-// Pallas `_kernel`) in its four instances, float32 ("precise") mode:
+// Pallas `_kernel`) in its four instances, in its float32 ("precise") and
+// bfloat16 (precise=False) modes:
 //
 //   mode 0  enc0   conv, stride (1,1), time SAME / freq VALID, F -> F-2,
 //                  identity normalization, bare (enc0_down_flat)
@@ -28,6 +29,11 @@
 // ConvTranspose2d weight [C, N, 3, 3] for the transpose modes, read in place
 // (no copy, no flip): out[t, fo] += w[c, n, kt, kf] * xn[t + 1 - kt, (fo -
 // kf) / s].
+//
+// Modes (template S): float32 throughout, or bfloat16 storage with the TPU
+// kernel's rounding points: x, w and y bfloat16, the normalized input
+// rounded to bfloat16 (the TPU kernel's bf16 patch), float32 sums and
+// epilogue, statistics from the float32 y before its bfloat16 store.
 //
 // Bound on the H100: float32 FMA issue and its latency hiding, at C =
 // 12..64 input channels and N = 4..32 outputs.  256 threads hold 16
@@ -79,11 +85,11 @@ __host__ __device__ inline int num_tiles(int mode, int T, int Fin, int Fout) {
   return (T * Fout + POS_TILE - 1) / POS_TILE;
 }
 
-template <int MODE>
+template <int MODE, typename S>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-stencil_kernel(const float* __restrict__ x, const float* __restrict__ scale,
-               const float* __restrict__ mean, const float* __restrict__ w,
-               const float* __restrict__ bias, float* __restrict__ y,
+stencil_kernel(const S* __restrict__ x, const float* __restrict__ scale,
+               const float* __restrict__ mean, const S* __restrict__ w,
+               const float* __restrict__ bias, S* __restrict__ y,
                float* __restrict__ part, int C, int T, int Fin, int Fout,
                int N) {
   constexpr bool kAct = MODE == DOWN || MODE == UP;  // ELU + stats
@@ -130,7 +136,7 @@ stencil_kernel(const float* __restrict__ x, const float* __restrict__ scale,
       const int c = cb + k;
       const float sc = scale ? scale[b * C + c] : 1.f;
       const float mu = mean ? mean[b * C + c] : 0.f;
-      const float* xp = x + ((size_t)b * C + c) * T * Fin;
+      const S* xp = x + ((size_t)b * C + c) * T * Fin;
       float xv[9][PT];
 #pragma unroll
       for (int tap = 0; tap < 9; ++tap) {
@@ -140,7 +146,8 @@ stencil_kernel(const float* __restrict__ x, const float* __restrict__ scale,
           int ti, fi;
           const bool ok = pv[j] && tap_src<MODE>(pt[j], pm[j], tap / 3,
                                                  tap % 3, T, Fin, ti, fi);
-          xv[tap][j] = ok ? (__ldg(xp + ti * Fin + fi) - mu) * sc : 0.f;
+          xv[tap][j] =
+              ok ? round_as<S>((ldg_f32(xp + ti * Fin + fi) - mu) * sc) : 0.f;
         }
       }
 #pragma unroll
@@ -167,49 +174,38 @@ stencil_kernel(const float* __restrict__ x, const float* __restrict__ scale,
         su[i] += v;
         sq[i] += v * v;
       }
-      y[((size_t)b * N + n) * TFo + pos[j]] = v;
+      store(y + ((size_t)b * N + n) * TFo + pos[j], v);
     }
   }
   if (kAct)
     block_stats<THREADS>(su, sq, part, b, B, n0, N, blockIdx.x, gridDim.x);
 }
 
-}  // namespace
-}  // namespace misonet
-
-// C entry point.  All tensors float32, contiguous, on the current device:
-//   x [B, C, T, Fin]; scale, mean [B, C] (NULL for mode 0: identity);
-//   w [N, C, 3, 3] for modes 0-1, [C, N, 3, 3] for modes 2-3; bias [N];
-//   y [B, N, T, Fout];
-//   part [2, B, N, ntiles] scratch with ntiles = misonet_stencil_tiles(),
-//   and sums, sqs [B, N] for modes 1-2 (NULL otherwise).
-// Returns cudaGetLastError() after the launches (0 on success); an unknown
-// mode returns cudaErrorInvalidValue.
-extern "C" int misonet_stencil(int mode, const float* x, const float* scale,
-                               const float* mean, const float* w,
-                               const float* bias, float* y, float* part,
-                               float* sums, float* sqs, int B, int C, int T,
-                               int Fin, int Fout, int N, void* stream) {
-  using namespace misonet;
+// Launch a stencil call for storage type S (see the C entry points below).
+template <typename S>
+int launch_stencil(int mode, const S* x, const float* scale,
+                   const float* mean, const S* w, const float* bias, S* y,
+                   float* part, float* sums, float* sqs, int B, int C,
+                   int Tn, int Fin, int Fout, int N, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int ntiles = num_tiles(mode, T, Fin, Fout);
+  const int ntiles = num_tiles(mode, Tn, Fin, Fout);
   const dim3 grid(ntiles, (N + NB - 1) / NB, B);
   switch (mode) {
     case ENC0:
-      stencil_kernel<ENC0><<<grid, THREADS, 0, st>>>(
-          x, scale, mean, w, bias, y, part, C, T, Fin, Fout, N);
+      stencil_kernel<ENC0, S><<<grid, THREADS, 0, st>>>(
+          x, scale, mean, w, bias, y, part, C, Tn, Fin, Fout, N);
       break;
     case DOWN:
-      stencil_kernel<DOWN><<<grid, THREADS, 0, st>>>(
-          x, scale, mean, w, bias, y, part, C, T, Fin, Fout, N);
+      stencil_kernel<DOWN, S><<<grid, THREADS, 0, st>>>(
+          x, scale, mean, w, bias, y, part, C, Tn, Fin, Fout, N);
       break;
     case UP:
-      stencil_kernel<UP><<<grid, THREADS, 0, st>>>(
-          x, scale, mean, w, bias, y, part, C, T, Fin, Fout, N);
+      stencil_kernel<UP, S><<<grid, THREADS, 0, st>>>(
+          x, scale, mean, w, bias, y, part, C, Tn, Fin, Fout, N);
       break;
     case FINAL:
-      stencil_kernel<FINAL><<<grid, THREADS, 0, st>>>(
-          x, scale, mean, w, bias, y, part, C, T, Fin, Fout, N);
+      stencil_kernel<FINAL, S><<<grid, THREADS, 0, st>>>(
+          x, scale, mean, w, bias, y, part, C, Tn, Fin, Fout, N);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -219,6 +215,38 @@ extern "C" int misonet_stencil(int mode, const float* x, const float* scale,
   if (mode == DOWN || mode == UP)
     return (int)launch_reduce_stats(part, sums, sqs, B * N, ntiles, st);
   return 0;
+}
+
+}  // namespace
+}  // namespace misonet
+
+// C entry points.  All tensors contiguous, on the current device; x, w and
+// y float32 (misonet_stencil) or bfloat16 (misonet_stencil_bf16), the rest
+// float32:
+//   x [B, C, T, Fin]; scale, mean [B, C] (NULL for mode 0: identity);
+//   w [N, C, 3, 3] for modes 0-1, [C, N, 3, 3] for modes 2-3; bias [N];
+//   y [B, N, T, Fout];
+//   part [2, B, N, ntiles] scratch with ntiles = misonet_stencil_tiles(),
+//   and sums, sqs [B, N] for modes 1-2 (NULL otherwise).
+// Return cudaGetLastError() after the launches (0 on success); an unknown
+// mode returns cudaErrorInvalidValue.
+extern "C" int misonet_stencil(int mode, const float* x, const float* scale,
+                               const float* mean, const float* w,
+                               const float* bias, float* y, float* part,
+                               float* sums, float* sqs, int B, int C, int T,
+                               int Fin, int Fout, int N, void* stream) {
+  return misonet::launch_stencil(mode, x, scale, mean, w, bias, y, part, sums,
+                                 sqs, B, C, T, Fin, Fout, N, stream);
+}
+
+extern "C" int misonet_stencil_bf16(int mode, const __nv_bfloat16* x,
+                                    const float* scale, const float* mean,
+                                    const __nv_bfloat16* w, const float* bias,
+                                    __nv_bfloat16* y, float* part, float* sums,
+                                    float* sqs, int B, int C, int T, int Fin,
+                                    int Fout, int N, void* stream) {
+  return misonet::launch_stencil(mode, x, scale, mean, w, bias, y, part, sums,
+                                 sqs, B, C, T, Fin, Fout, N, stream);
 }
 
 // Position tiles per (batch, channel tile) of a stencil call: the size of

@@ -2,8 +2,15 @@
 reference model.py:401-632).
 
 Layouts are NCHW ``[B, C, T, F]`` for the U-Net and ``[B, C, T]`` for the
-TCN.  Every conv is float32 with time padding 1 and, except in the
-DenseBlocks, frequency padding 0 (reference padding=(1, 0)).  Transposed
+TCN.  Every conv has time padding 1 and, except in the DenseBlocks,
+frequency padding 0 (reference padding=(1, 0)).
+
+Precision: each module computes in the dtype of its input, float32 or
+bfloat16 (``MISONet`` casts its input once to ``compute_dtype``), as the
+JAX modules do with their ``dtype`` field: parameters stay float32 and are
+cast at use (conv kernels and biases, the PReLU slope), convs run in the
+input's dtype, and every norm takes its statistics in float32 and casts its
+output back (misonet_tpu/models/blocks.py:39-42, :56-60, :95-99).  Transposed
 convs keep torch's geometry ``out = (in - 1) * stride - 2 * pad + kernel``
 and torch's ``[I, O, kh, kw]`` weight, so the frequency ladder
 129 -> 127 -> 63 -> 31 -> 15 -> 7 -> 3 -> 1 and back matches the reference.
@@ -29,6 +36,13 @@ def conv2d(in_ch: int, out_ch: int, **kw) -> nn.Conv2d:
     return skip_init(nn.Conv2d, in_ch, out_ch, 3, **kw)
 
 
+def run_conv(conv: nn.Conv1d | nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv`` applied in ``x``'s dtype, its float32 parameters cast at
+    use."""
+    bias = None if conv.bias is None else conv.bias.to(x.dtype)
+    return conv._conv_forward(x, conv.weight.to(x.dtype), bias)
+
+
 class InstanceNorm(nn.Module):
     """Per-(batch, channel) normalization over all spatial axes, no affine
     (torch InstanceNorm1d/2d(affine=False))."""
@@ -38,10 +52,11 @@ class InstanceNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
         dims = tuple(range(2, x.ndim))
-        mean = x.mean(dim=dims, keepdim=True)
-        var = x.var(dim=dims, keepdim=True, unbiased=False)
-        return (x - mean) * torch.rsqrt(var + self.eps)
+        mean = x32.mean(dim=dims, keepdim=True)
+        var = x32.var(dim=dims, keepdim=True, unbiased=False)
+        return ((x32 - mean) * torch.rsqrt(var + self.eps)).to(x.dtype)
 
 
 class GlobalLayerNorm(nn.Module):
@@ -55,11 +70,13 @@ class GlobalLayerNorm(nn.Module):
         self.beta = nn.Parameter(torch.empty(1, 1, channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mean = x.mean(dim=(1, 2), keepdim=True)
-        var = ((x - mean) ** 2).mean(dim=(1, 2), keepdim=True)
+        x32 = x.float()
+        mean = x32.mean(dim=(1, 2), keepdim=True)
+        var = ((x32 - mean) ** 2).mean(dim=(1, 2), keepdim=True)
         gamma = self.gamma.reshape(1, -1, 1)
         beta = self.beta.reshape(1, -1, 1)
-        return gamma * (x - mean) / torch.sqrt(var + self.eps) + beta
+        out = gamma * (x32 - mean) / torch.sqrt(var + self.eps) + beta
+        return out.to(x.dtype)
 
 
 class ChannelwiseLayerNorm(nn.Module):
@@ -73,11 +90,13 @@ class ChannelwiseLayerNorm(nn.Module):
         self.beta = nn.Parameter(torch.empty(1, 1, channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mean = x.mean(dim=1, keepdim=True)
-        var = x.var(dim=1, keepdim=True, unbiased=False)
+        x32 = x.float()
+        mean = x32.mean(dim=1, keepdim=True)
+        var = x32.var(dim=1, keepdim=True, unbiased=False)
         gamma = self.gamma.reshape(1, -1, 1)
         beta = self.beta.reshape(1, -1, 1)
-        return gamma * (x - mean) / torch.sqrt(var + self.eps) + beta
+        out = gamma * (x32 - mean) / torch.sqrt(var + self.eps) + beta
+        return out.to(x.dtype)
 
 
 class SimpleBatchNorm(nn.Module):
@@ -94,10 +113,12 @@ class SimpleBatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dims = (0,) + tuple(range(2, x.ndim))
         shape = (1, -1) + (1,) * (x.ndim - 2)
-        mean = x.mean(dim=dims, keepdim=True)
-        var = x.var(dim=dims, keepdim=True, unbiased=False)
-        return (self.gamma.reshape(shape) * (x - mean)
-                * torch.rsqrt(var + self.eps) + self.beta.reshape(shape))
+        x32 = x.float()
+        mean = x32.mean(dim=dims, keepdim=True)
+        var = x32.var(dim=dims, keepdim=True, unbiased=False)
+        out = (self.gamma.reshape(shape) * (x32 - mean)
+               * torch.rsqrt(var + self.eps) + self.beta.reshape(shape))
+        return out.to(x.dtype)
 
 
 def choose_norm(norm_type: str, channels: int) -> nn.Module:
@@ -121,7 +142,7 @@ class PReLU(nn.Module):
         self.alpha = nn.Parameter(torch.empty(()))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.where(x >= 0, x, self.alpha * x)
+        return torch.where(x >= 0, x, self.alpha.to(x.dtype) * x)
 
 
 class ConvTranspose2dTorch(nn.Module):
@@ -138,8 +159,9 @@ class ConvTranspose2dTorch(nn.Module):
         self.bias = nn.Parameter(torch.empty(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose2d(x, self.weight, self.bias,
-                                  stride=self.stride, padding=self.padding)
+        return F.conv_transpose2d(x, self.weight.to(x.dtype),
+                                  self.bias.to(x.dtype), stride=self.stride,
+                                  padding=self.padding)
 
 
 class ConvBlock(nn.Module):
@@ -155,7 +177,7 @@ class ConvBlock(nn.Module):
         self.norm = InstanceNorm()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv(x)
+        x = run_conv(self.conv, x)
         if self.act_norm:
             x = self.norm(F.elu(x))
         return x
@@ -197,7 +219,8 @@ class DenseBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         tensors = [x]
         for conv in self.convs:
-            tensors.append(self.norm(F.elu(conv(torch.cat(tensors, dim=1)))))
+            z = run_conv(conv, torch.cat(tensors, dim=1))
+            tensors.append(self.norm(F.elu(z)))
         return tensors[-1]
 
 
@@ -217,7 +240,8 @@ class DepthwiseSeparableConv(nn.Module):
                                    bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.pointwise(self.norm(self.prelu(self.depthwise(x))))
+        x = self.norm(self.prelu(run_conv(self.depthwise, x)))
+        return run_conv(self.pointwise, x)
 
 
 class TemporalBlock(nn.Module):

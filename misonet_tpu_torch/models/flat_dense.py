@@ -9,10 +9,14 @@ the autograd Functions of ``ops.kernels.flat_grad`` (backward:
 
 Bundle contract (as in the JAX package, without its lane-flattened
 framing): ``(tensors, scale, mean)`` where ``tensors`` is a tuple of raw
-float32 ``[B, c_i, T, F]`` tensors whose channel concatenation is logical,
-and ``scale = 1/sigma``, ``mean`` ``[B, sum(c_i)]`` are their InstanceNorm
-statistics; consumers see ``(x - mean) * scale``.  A tensor that is already
-in its final form is bundled with ``scale = 1, mean = 0``.
+``[B, c_i, T, F]`` tensors of the working dtype (float32, or bfloat16 for
+``compute_dtype="bfloat16"``) whose channel concatenation is logical, and
+``scale = 1/sigma``, ``mean`` float32 ``[B, sum(c_i)]`` are their
+InstanceNorm statistics, from float32 sums; consumers see ``(x - mean) *
+scale``.  A tensor that is already in its final form is bundled with
+``scale = 1, mean = 0``.  The kernels run in the bundle's dtype; with
+``quant`` (the JAX package's ``quant_int8``, bfloat16 only) the DenseBlocks
+run the int8 decode kernel and the stencils stay bfloat16.
 """
 
 from __future__ import annotations
@@ -25,7 +29,11 @@ from misonet_tpu_torch.models.blocks import (
     DeconvBlock,
     DenseBlock,
 )
-from misonet_tpu_torch.ops.kernels.flat_grad import dense_stack_ad, stencil_ad
+from misonet_tpu_torch.ops.kernels.flat_grad import (
+    dense_stack_ad,
+    dense_stack_int8_ad,
+    stencil_ad,
+)
 from misonet_tpu_torch.ops.stats import stats_to_scale_mean
 
 Bundle = tuple[tuple[torch.Tensor, ...], torch.Tensor, torch.Tensor]
@@ -37,6 +45,7 @@ MIN_LEVELS = 7
 
 
 def identity_bundle(x: torch.Tensor) -> Bundle:
+    """A tensor in its final form, in its own dtype, as a bundle."""
     b, c = x.shape[:2]
     ones = torch.ones((b, c), device=x.device, dtype=torch.float32)
     return (x,), ones, torch.zeros_like(ones)
@@ -56,9 +65,11 @@ def merge_bundles(*bundles: Bundle) -> Bundle:
 
 
 def from_bundle(bundle: Bundle) -> torch.Tensor:
-    """Materialize the normalized tensor of a single-tensor bundle."""
+    """Materialize the normalized tensor of a single-tensor bundle,
+    normalized in float32 and returned in the bundle's dtype."""
     (x,), scale, mean = bundle
-    return (x - mean[:, :, None, None]) * scale[:, :, None, None]
+    xn = (x.float() - mean[:, :, None, None]) * scale[:, :, None, None]
+    return xn.to(x.dtype)
 
 
 def resolve_flat(setting, x: torch.Tensor, *, nb: int) -> bool:
@@ -109,39 +120,44 @@ class DenseBlockFlat(DenseBlock):
             ))
         return stacks
 
-    def stacked_weights(self) -> list[torch.Tensor]:
-        """The ``w_stack`` of each call s: the kernels of layers s..4 over
-        source s's input channels, ``[sum(widths[s:]), c_s, 3, 3]``.
+    def stacked_weights(self, dtype=torch.float32) -> list[torch.Tensor]:
+        """The ``w_stack`` of each call s in ``dtype``: the kernels of
+        layers s..4 over source s's input channels, ``[sum(widths[s:]), c_s,
+        3, 3]``.
 
         When autograd records a weight, the stacks are built inside the
         graph on every call (the ``cat`` splits ``dW_stack`` back into the
         layers' gradients; the optimizer's in-place step changes the
-        weights each step anyway).  Otherwise they are built once and
-        rebuilt only when a weight is replaced, gets new storage or an
-        in-place update.  Weights made under ``torch.inference_mode`` keep
-        no version counter, so for them the stacks are rebuilt on every
-        call."""
+        weights each step anyway).  Otherwise they are built once per
+        dtype and rebuilt only when a weight is replaced, gets new storage
+        or an in-place update.  Weights made under ``torch.inference_mode``
+        keep no version counter, so for them the stacks are rebuilt on
+        every call."""
         weights = [c.weight for c in self.convs]
         if torch.is_grad_enabled() and any(w.requires_grad for w in weights):
-            return self._stack()
+            return [w.to(dtype) for w in self._stack()]
         key = (None if any(w.is_inference() for w in weights) else
                tuple((id(w), w.data_ptr(), w._version) for w in weights))
-        if key is None or getattr(self, "_stack_key", None) != key:
+        cache = self.__dict__.setdefault("_stacks", {})
+        if key is None or cache.get(dtype, (None,))[0] != key:
             with torch.no_grad():
-                stacks = self._stack()
-            self._stacks, self._stack_key = stacks, key
+                cache[dtype] = (key, [w.to(dtype) for w in self._stack()])
             # keeps the keyed weights alive, so no other tensor can take
             # their ids or storage while the key stands
             self._stacked_from = weights
-        return self._stacks
+        return cache[dtype][1]
 
-    def flat(self, bundle: Bundle) -> Bundle:
-        """Bundle in -> the 5th layer's raw output with its statistics."""
+    def flat(self, bundle: Bundle, quant: bool = False) -> Bundle:
+        """Bundle in -> the 5th layer's raw output with its statistics.
+        ``quant``: the int8 decode kernel on a bfloat16 bundle (its rows are
+        quantized from the float32 stacks)."""
         src, scale, mean = bundle
+        call = dense_stack_int8_ad if quant else dense_stack_ad
+        stacks = self.stacked_weights(torch.float32 if quant
+                                      else src[0].dtype)
         acc = None
-        for s, (conv, w_stack) in enumerate(
-                zip(self.convs, self.stacked_weights())):
-            y, sums, sqs, acc = dense_stack_ad(
+        for s, (conv, w_stack) in enumerate(zip(self.convs, stacks)):
+            y, sums, sqs, acc = call(
                 src, acc, w_stack, conv.bias, scale, mean,
                 n_fin=self.widths[s],
             )
@@ -156,8 +172,8 @@ class Enc0Flat(ConvBlock):
     statistics), like the reference feeds it to the DenseBlock."""
 
     def flat(self, x: torch.Tensor) -> Bundle:
-        y, _, _ = stencil_ad(x, self.conv.weight, self.conv.bias, None, None,
-                             "enc0")
+        y, _, _ = stencil_ad(x, self.conv.weight.to(x.dtype), self.conv.bias,
+                             None, None, "enc0")
         return identity_bundle(y)
 
 
@@ -167,8 +183,8 @@ class TrunkDownFlat(ConvBlock):
 
     def flat(self, bundle: Bundle) -> Bundle:
         (x,), scale, mean = bundle
-        y, sums, sqs = stencil_ad(x, self.conv.weight, self.conv.bias, scale,
-                                  mean, "down")
+        y, sums, sqs = stencil_ad(x, self.conv.weight.to(x.dtype),
+                                  self.conv.bias, scale, mean, "down")
         return stats_bundle(y, sums, sqs)
 
 
@@ -178,8 +194,8 @@ class DeconvUpFlat(DeconvBlock):
 
     def flat(self, bundle: Bundle) -> Bundle:
         (x,), scale, mean = bundle
-        y, sums, sqs = stencil_ad(x, self.deconv.weight, self.deconv.bias,
-                                  scale, mean, "up")
+        y, sums, sqs = stencil_ad(x, self.deconv.weight.to(x.dtype),
+                                  self.deconv.bias, scale, mean, "up")
         return stats_bundle(y, sums, sqs)
 
 
@@ -189,5 +205,6 @@ class FinalDeconvFlat(ConvTranspose2dTorch):
 
     def flat(self, bundle: Bundle) -> torch.Tensor:
         (x,), scale, mean = bundle
-        y, _, _ = stencil_ad(x, self.weight, self.bias, scale, mean, "final")
+        y, _, _ = stencil_ad(x, self.weight.to(x.dtype), self.bias, scale,
+                             mean, "final")
         return y

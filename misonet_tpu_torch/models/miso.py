@@ -11,6 +11,12 @@ fused over the CUDA kernels (``models/flat_dense.py``), forward and, under
 autograd, backward; elsewhere, and on the CPU, the plain modules run.  Both
 paths use the same parameters.  The factories build the model on the card
 unless the caller asks for another device.
+
+``ModelConfig.compute_dtype`` picks the working precision, as in the JAX
+package: "float32", or "bfloat16" (the default) where activations are
+stored in bfloat16, convs accumulate in float32 and statistics stay
+float32; parameters stay float32 either way.  The output is complex64 in
+every mode.
 """
 
 from __future__ import annotations
@@ -39,19 +45,23 @@ from misonet_tpu_torch.models.flat_dense import (
 )
 
 
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 def check_config(cfg: ModelConfig) -> None:
-    """Raise for settings the port does not implement yet (each is a
-    ROADMAP item), instead of silently computing something else."""
-    if cfg.compute_dtype != "float32":
+    """Raise for settings the port does not implement (each is a ROADMAP
+    item or no setting of the JAX package's), instead of silently
+    computing something else.
+
+    ``compute_dtype`` is "float32" or "bfloat16".  ``quant_int8`` applies,
+    exactly as in the JAX package (misonet_tpu/models/miso.py:98), only to
+    the fused DenseBlocks of a bfloat16 model, and only forward (decode):
+    a float32 model ignores it, and so do the plain modules, which is the
+    path the CPU runs."""
+    if cfg.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(
             f"compute_dtype={cfg.compute_dtype!r}: the PyTorch port computes "
-            "in float32 only (bf16 kernel paths are a ROADMAP item); use "
-            "ModelConfig(compute_dtype='float32')"
-        )
-    if cfg.quant_int8:
-        raise ValueError(
-            "quant_int8=True: the int8 dense_stack decode path is not ported "
-            "yet (ROADMAP, TPU kernels still to port)"
+            f"in {' or '.join(COMPUTE_DTYPES)}"
         )
     if cfg.sequence_parallel:
         raise NotImplementedError(
@@ -70,6 +80,7 @@ class MISONet(nn.Module):
         super().__init__()
         check_config(cfg)
         self.cfg = cfg
+        self.dtype = COMPUTE_DTYPES[cfg.compute_dtype]
         self.num_spks = num_spks
         nb = cfg.num_bottleneck
         en = list(cfg.en_channels)
@@ -120,8 +131,10 @@ class MISONet(nn.Module):
             )
         nb = self.cfg.num_bottleneck
         x_cm = torch.cat([mixture.real, mixture.imag], dim=1)
-        x_cm = x_cm.to(torch.float32).contiguous()
+        x_cm = x_cm.to(self.dtype).contiguous()
         flat = resolve_flat(self.cfg.flat_dense, x_cm, nb=nb)
+        # int8 DenseBlock decode on the fused bfloat16 path only (miso.py:98)
+        quant = self.cfg.quant_int8 and self.dtype != torch.float32
 
         # --- encoder: levels 0-4 stay raw tensors + statistics when fused
         skips = []
@@ -132,7 +145,7 @@ class MISONet(nn.Module):
             dense = getattr(self, f"enc{i}_dense", None)
             if flat and i < 5:
                 bundle = enc.flat(x_cm) if i == 0 else enc.flat(bundle)
-                bundle = dense.flat(bundle)
+                bundle = dense.flat(bundle, quant)
                 skips.append(bundle)
                 continue
             if flat and i == 5:
@@ -158,7 +171,7 @@ class MISONet(nn.Module):
             if flat and i >= nb - 5:
                 if i == nb - 5:
                     bundle = identity_bundle(x)
-                bundle = dense.flat(merge_bundles(bundle, skip))
+                bundle = dense.flat(merge_bundles(bundle, skip), quant)
                 if i == nb - 1:
                     x = dec.flat(bundle)
                 else:
@@ -169,7 +182,7 @@ class MISONet(nn.Module):
                 x = dense(x)
             x = dec(x)
 
-        real, imag = torch.chunk(x, 2, dim=1)
+        real, imag = torch.chunk(x.float(), 2, dim=1)
         return torch.complex(real, imag)
 
 

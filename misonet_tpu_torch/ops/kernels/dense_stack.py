@@ -1,7 +1,9 @@
 """Kernel 1: one input-grouped ("stacked") DenseBlock call.
 
-Replaces misonet_tpu/ops/pallas/dense_stack.py::dense_stack_flat (float32
-"precise" mode).  For the newly available source tensor(s) of a DenseBlock
+Replaces misonet_tpu/ops/pallas/dense_stack.py::dense_stack_flat in its
+float32 ("precise") and bfloat16 (precise=False) modes; its int8 decode mode
+is ``ops/kernels/dense_stack_int8.py``.  For the newly available source
+tensor(s) of a DenseBlock
 it convolves their normalized values with the stacked 3x3 kernels of every
 layer that consumes them, adds the incoming partial pre-activations,
 finalizes the first ``n_fin`` rows (bias + ELU + per-(b, c) sum/sumsq) and
@@ -9,8 +11,18 @@ passes the remaining rows on as partials.  CUDA source:
 ``misonet_tpu_torch/csrc/dense_stack.cu`` (what bounds it on the H100 and
 how the design answers that is written at the top of that file).
 
+The mode follows the sources' dtype.  float32: every tensor float32.
+bfloat16: the sources, ``acc_in``, ``w_stack`` and the outputs ``y`` and
+``acc_out`` are bfloat16; ``bias``, ``scale``, ``mean`` and the sums stay
+float32.  The bfloat16 mode rounds where the TPU kernel does: the
+normalized input (its bf16 patch) and the weights are bfloat16, the
+products are summed in float32, ``acc_out`` and ``y`` are rounded for the
+store, and the statistics come from the float32 ``y``.
+
 ``dense_stack`` launches the kernel for CUDA tensors (raising on anything
-it does not take) and runs ``dense_stack_plain`` for CPU tensors.
+it does not take) and runs ``dense_stack_plain`` for CPU tensors.  Each
+mode has its own launch counter: ``dense_stack.launches`` (float32) and
+``dense_stack.launches_bf16``.
 """
 
 from __future__ import annotations
@@ -26,30 +38,39 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+DTYPES = (torch.float32, torch.bfloat16)
+
+
 def dense_stack_plain(xs, acc_in, w_stack, bias, scale, mean, n_fin):
     """Plain PyTorch version: same arguments and results as
-    :func:`dense_stack`."""
-    x = torch.cat(list(xs), dim=1)
-    xn = (x - mean[:, :, None, None]) * scale[:, :, None, None]
-    z = F.conv2d(xn, w_stack, padding=1)
+    :func:`dense_stack`.  In the bfloat16 mode it runs float32 convs of the
+    bfloat16-rounded normalized input and weights, so it rounds at the
+    kernel's points (with TF32 off, only the order of the sums differs)."""
+    dtype = xs[0].dtype
+    x = torch.cat([x.float() for x in xs], dim=1)
+    xn = ((x - mean[:, :, None, None]) * scale[:, :, None, None]).to(dtype)
+    z = F.conv2d(xn.float(), w_stack.float(), padding=1)
     if acc_in is not None:
-        z = z + acc_in
+        z = z + acc_in.float()
     y = F.elu(z[:, :n_fin] + bias[None, :, None, None])
-    acc_out = z[:, n_fin:].contiguous() if z.shape[1] > n_fin else None
-    return y, y.sum(dim=(2, 3)), (y * y).sum(dim=(2, 3)), acc_out
+    acc_out = (z[:, n_fin:].to(dtype).contiguous() if z.shape[1] > n_fin
+               else None)
+    return y.to(dtype), y.sum(dim=(2, 3)), (y * y).sum(dim=(2, 3)), acc_out
 
 
-def _check(name, t, shape, device):
-    if t.device != device or t.dtype != torch.float32:
+def check_tensor(kernel, name, t, shape, device, dtype=torch.float32):
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``."""
+    if t.device != device or t.dtype != dtype:
         raise ValueError(
-            f"dense_stack: {name} must be float32 on {device}, got "
+            f"{kernel}: {name} must be {dtype} on {device}, got "
             f"{t.dtype} on {t.device}"
         )
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"dense_stack: {name} shape {tuple(t.shape)}, "
+        raise ValueError(f"{kernel}: {name} shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
-        raise ValueError(f"dense_stack: {name} must be contiguous")
+        raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
 def dense_stack(xs, acc_in, w_stack, bias, scale, mean, n_fin: int):
@@ -58,7 +79,8 @@ def dense_stack(xs, acc_in, w_stack, bias, scale, mean, n_fin: int):
     xs        1 or 2 raw source tensors [B, c_i, T, F] (logical concat)
     acc_in    [B, N, T, F] partial pre-activations, or None
     w_stack   [N, sum(c_i), 3, 3] stacked kernels of the consuming layers
-    bias      [n_fin] bias of the layer being finalized
+              (the sources' dtype)
+    bias      [n_fin] bias of the layer being finalized (float32)
     scale     [B, sum(c_i)] per-channel 1/sigma of the sources
     mean      [B, sum(c_i)] per-channel mean of the sources
 
@@ -73,32 +95,42 @@ def dense_stack(xs, acc_in, w_stack, bias, scale, mean, n_fin: int):
                                  n_fin)
     if device.type != "cuda":
         raise ValueError(f"dense_stack: unsupported device {device}")
+    dtype = xs[0].dtype
+    if dtype not in DTYPES:
+        raise ValueError(f"dense_stack: sources must be float32 or bfloat16, "
+                         f"got {dtype}")
     b, _, t, f = xs[0].shape
     widths = [int(x.shape[1]) for x in xs]
     c_tot = sum(widths)
     n = int(w_stack.shape[0])
     if not 0 < n_fin <= n:
         raise ValueError(f"dense_stack: n_fin={n_fin} outside (0, {n}]")
+
+    def check(name, t_, shape, dt=dtype):
+        check_tensor("dense_stack", name, t_, shape, device, dt)
+
     for i, x in enumerate(xs):
-        _check(f"xs[{i}]", x, (b, widths[i], t, f), device)
-    _check("w_stack", w_stack, (n, c_tot, 3, 3), device)
-    _check("bias", bias, (n_fin,), device)
-    _check("scale", scale, (b, c_tot), device)
-    _check("mean", mean, (b, c_tot), device)
+        check(f"xs[{i}]", x, (b, widths[i], t, f))
+    check("w_stack", w_stack, (n, c_tot, 3, 3))
+    check("bias", bias, (n_fin,), torch.float32)
+    check("scale", scale, (b, c_tot), torch.float32)
+    check("mean", mean, (b, c_tot), torch.float32)
     if acc_in is not None:
-        _check("acc_in", acc_in, (b, n, t, f), device)
+        check("acc_in", acc_in, (b, n, t, f))
 
     lib = library()
+    bf16 = dtype == torch.bfloat16
+    entry = lib.misonet_dense_stack_bf16 if bf16 else lib.misonet_dense_stack
     ntiles = -(-(t * f) // lib.misonet_pos_tile())
-    y = torch.empty((b, n_fin, t, f), device=device)
-    acc_out = (torch.empty((b, n - n_fin, t, f), device=device)
+    y = torch.empty((b, n_fin, t, f), device=device, dtype=dtype)
+    acc_out = (torch.empty((b, n - n_fin, t, f), device=device, dtype=dtype)
                if n > n_fin else None)
     part = torch.empty((2, b, n_fin, ntiles), device=device)
     sums = torch.empty((b, n_fin), device=device)
     sqs = torch.empty((b, n_fin), device=device)
     x1 = xs[1].data_ptr() if len(xs) == 2 else None
     with torch.cuda.device(device):
-        err = lib.misonet_dense_stack(
+        err = entry(
             xs[0].data_ptr(), widths[0], x1,
             widths[1] if len(xs) == 2 else 0,
             scale.data_ptr(), mean.data_ptr(), w_stack.data_ptr(),
@@ -111,20 +143,25 @@ def dense_stack(xs, acc_in, w_stack, bias, scale, mean, n_fin: int):
         )
     if err:
         raise RuntimeError(f"dense_stack kernel launch failed: CUDA error {err}")
-    dense_stack.launches += 1
+    if bf16:
+        dense_stack.launches_bf16 += 1
+    else:
+        dense_stack.launches += 1
     return y, sums, sqs, acc_out
 
 
 dense_stack.launches = 0
+dense_stack.launches_bf16 = 0
 
 
 def library() -> ctypes.CDLL:
     lib = build.library()
-    lib.misonet_dense_stack.argtypes = [
-        _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _P,
-    ]
-    lib.misonet_dense_stack.restype = _I
+    for entry in (lib.misonet_dense_stack, lib.misonet_dense_stack_bf16):
+        entry.argtypes = [
+            _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+            _I, _I, _I, _I, _I, _P,
+        ]
+        entry.restype = _I
     lib.misonet_pos_tile.argtypes = []
     lib.misonet_pos_tile.restype = _I
     return lib

@@ -17,7 +17,12 @@ cotangent itself.  ``backward`` runs on autograd's thread; the kernel
 wrappers read the current CUDA stream at each launch.
 
 ``dense_stack_ad`` / ``stencil_ad`` go through the Functions when autograd
-records, and call the kernels directly otherwise.
+records, and call the kernels directly otherwise.  The backward exists in
+float32 only: a bfloat16 call under autograd raises ``NotImplementedError``
+(the bfloat16 mode of ``stencil_bwd`` is a ROADMAP item).  The int8 decode
+mode has no backward, as in the JAX package; ``dense_stack_int8_ad`` raises
+a clear ``ValueError`` when autograd records (the JAX package fails there
+with an opaque error, dense_stack.py:630).
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from misonet_tpu_torch.ops.kernels.dense_stack import dense_stack
+from misonet_tpu_torch.ops.kernels.dense_stack_int8 import dense_stack_int8
 from misonet_tpu_torch.ops.kernels.stencil import stencil
 from misonet_tpu_torch.ops.kernels.stencil_bwd import stencil_bwd
 
@@ -41,6 +47,16 @@ def fold_cotangents(y, ybar, sbar, qbar):
 def _records(*tensors) -> bool:
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in tensors)
+
+
+def _refuse_bf16(x: torch.Tensor) -> None:
+    if x.dtype != torch.float32:
+        raise NotImplementedError(
+            f"the fused path trains in float32 only ({x.dtype} under "
+            "autograd): the bfloat16 mode of stencil_bwd is a ROADMAP item "
+            "(section 0); train with compute_dtype='float32' or "
+            "flat_dense=False, or run under torch.no_grad()/inference_mode"
+        )
 
 
 class DenseStackFn(torch.autograd.Function):
@@ -110,6 +126,7 @@ def dense_stack_ad(xs, acc_in, w_stack, bias, scale, mean, n_fin: int):
     xs = tuple(xs)
     if not _records(*xs, acc_in, w_stack, bias, scale, mean):
         return dense_stack(xs, acc_in, w_stack, bias, scale, mean, n_fin)
+    _refuse_bf16(xs[0])
     out = DenseStackFn.apply(n_fin, acc_in, w_stack, bias, scale, mean, *xs)
     return out if len(out) == 4 else (*out, None)
 
@@ -118,5 +135,18 @@ def stencil_ad(x, w, bias, scale, mean, mode: str):
     """Differentiable :func:`stencil` (same arguments and results)."""
     if not _records(x, w, bias, scale, mean):
         return stencil(x, w, bias, scale, mean, mode)
+    _refuse_bf16(x)
     out = StencilFn.apply(mode, x, w, bias, scale, mean)
     return out if mode in _ACT else (out, None, None)
+
+
+def dense_stack_int8_ad(xs, acc_in, w_stack, bias, scale, mean, n_fin: int):
+    """:func:`dense_stack_int8` (same arguments and results), refused where
+    autograd records: the int8 mode is decode-only."""
+    xs = tuple(xs)
+    if _records(*xs, acc_in, w_stack, bias, scale, mean):
+        raise ValueError(
+            "quant_int8 is decode-only; run under torch.no_grad()/"
+            "inference_mode (or build the model without quant_int8 to train)"
+        )
+    return dense_stack_int8(xs, acc_in, w_stack, bias, scale, mean, n_fin)

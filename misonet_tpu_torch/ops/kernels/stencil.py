@@ -1,7 +1,8 @@
 """Kernel 2: the U-Net body's trunk and transpose convs.
 
-Replaces misonet_tpu/ops/pallas/stencil_flat.py::stencil_layer_flat
-(float32 "precise" mode) in its four instances, selected by ``mode``:
+Replaces misonet_tpu/ops/pallas/stencil_flat.py::stencil_layer_flat in its
+float32 ("precise") and bfloat16 (precise=False) modes, in its four
+instances, selected by ``mode``:
 
   ``"enc0"``   3x3 conv, stride (1,1), time SAME / freq VALID (F -> F-2),
                raw input (identity normalization), bare: no ELU, no stats
@@ -16,9 +17,17 @@ Conv weights are ``[N, C, 3, 3]`` (Conv2d), transpose weights
 ``[C, N, 3, 3]`` (ConvTranspose2d); time padding is 1 and frequency padding
 0 in all modes.  CUDA source: ``misonet_tpu_torch/csrc/stencil.cu``.
 
+The dtype mode follows ``x``: float32 throughout, or ``x``, ``w`` and ``y``
+bfloat16 with ``bias``, ``scale``, ``mean`` and the sums float32, rounded
+where the TPU kernel rounds (the normalized input and the weights are
+bfloat16, the sums run in float32, the statistics come from the float32
+output before its bfloat16 store).
+
 ``stencil`` launches the kernel for CUDA tensors (raising on anything it
 does not take) and runs ``stencil_plain`` for CPU tensors.  It returns
-``(y, sums, sqs)``; the sums are None for the bare modes.
+``(y, sums, sqs)``; the sums are None for the bare modes.  Each dtype mode
+has its own launch counter: ``stencil.launches`` (float32) and
+``stencil.launches_bf16``.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from misonet_tpu_torch.ops.kernels import build
+from misonet_tpu_torch.ops.kernels.dense_stack import DTYPES, check_tensor
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,39 +59,32 @@ def out_bins(mode: str, f_in: int) -> int:
 
 
 def stencil_plain(x, w, bias, scale, mean, mode: str):
-    """Plain PyTorch version: same arguments and results as :func:`stencil`."""
+    """Plain PyTorch version: same arguments and results as :func:`stencil`.
+    In the bfloat16 mode it runs float32 convs of the bfloat16-rounded
+    normalized input and weights (the kernel's rounding points)."""
+    dtype = x.dtype
     if scale is not None:
-        x = (x - mean[:, :, None, None]) * scale[:, :, None, None]
+        x = ((x.float() - mean[:, :, None, None])
+             * scale[:, :, None, None]).to(dtype)
+    x, w = x.float(), w.float()
     stride = (1, 2) if mode in ("down", "up") else (1, 1)
     if mode in _TRANSPOSE:
         y = F.conv_transpose2d(x, w, bias, stride=stride, padding=(1, 0))
     else:
         y = F.conv2d(x, w, bias, stride=stride, padding=(1, 0))
     if mode not in _ACT:
-        return y, None, None
+        return y.to(dtype), None, None
     y = F.elu(y)
-    return y, y.sum(dim=(2, 3)), (y * y).sum(dim=(2, 3))
-
-
-def _check(name, t, shape, device):
-    if t.device != device or t.dtype != torch.float32:
-        raise ValueError(
-            f"stencil: {name} must be float32 on {device}, got "
-            f"{t.dtype} on {t.device}"
-        )
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"stencil: {name} shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"stencil: {name} must be contiguous")
+    return y.to(dtype), y.sum(dim=(2, 3)), (y * y).sum(dim=(2, 3))
 
 
 def stencil(x, w, bias, scale, mean, mode: str):
     """One stencil layer.
 
     x      [B, C, T, F_in] raw input
-    w      [N, C, 3, 3] (conv modes) or [C, N, 3, 3] (transpose modes)
-    bias   [N]
+    w      [N, C, 3, 3] (conv modes) or [C, N, 3, 3] (transpose modes), of
+           x's dtype
+    bias   [N] float32
     scale  [B, C] 1/sigma and mean [B, C] of the input; both None for
            ``"enc0"`` (identity), required otherwise
 
@@ -99,22 +102,29 @@ def stencil(x, w, bias, scale, mean, mode: str):
         return stencil_plain(x, w, bias, scale, mean, mode)
     if device.type != "cuda":
         raise ValueError(f"stencil: unsupported device {device}")
+    dtype = x.dtype
+    if dtype not in DTYPES:
+        raise ValueError(f"stencil: x must be float32 or bfloat16, got {dtype}")
     b, c, t, f_in = x.shape
     n = int(w.shape[1] if mode in _TRANSPOSE else w.shape[0])
     f_out = out_bins(mode, f_in)
     if f_out < 1:
         raise ValueError(f"stencil: mode {mode!r} needs more than {f_in} bins")
-    _check("x", x, (b, c, t, f_in), device)
-    _check("w", w, (c, n, 3, 3) if mode in _TRANSPOSE else (n, c, 3, 3),
-           device)
-    _check("bias", bias, (n,), device)
+    def check(name, t_, shape, dt=dtype):
+        check_tensor("stencil", name, t_, shape, device, dt)
+
+    check("x", x, (b, c, t, f_in))
+    check("w", w, (c, n, 3, 3) if mode in _TRANSPOSE else (n, c, 3, 3))
+    check("bias", bias, (n,), torch.float32)
     if scale is not None:
-        _check("scale", scale, (b, c), device)
-        _check("mean", mean, (b, c), device)
+        check("scale", scale, (b, c), torch.float32)
+        check("mean", mean, (b, c), torch.float32)
 
     lib = library()
+    bf16 = dtype == torch.bfloat16
+    entry = lib.misonet_stencil_bf16 if bf16 else lib.misonet_stencil
     ntiles = lib.misonet_stencil_tiles(MODES[mode], t, f_in, f_out)
-    y = torch.empty((b, n, t, f_out), device=device)
+    y = torch.empty((b, n, t, f_out), device=device, dtype=dtype)
     act = mode in _ACT
     part = torch.empty((2, b, n, ntiles), device=device) if act else None
     sums = torch.empty((b, n), device=device) if act else None
@@ -124,27 +134,32 @@ def stencil(x, w, bias, scale, mean, mode: str):
         return v.data_ptr() if v is not None else None
 
     with torch.cuda.device(device):
-        err = lib.misonet_stencil(
+        err = entry(
             MODES[mode], x.data_ptr(), ptr(scale), ptr(mean), w.data_ptr(),
             bias.data_ptr(), y.data_ptr(), ptr(part), ptr(sums), ptr(sqs),
             b, c, t, f_in, f_out, n, torch.cuda.current_stream().cuda_stream,
         )
     if err:
         raise RuntimeError(f"stencil kernel launch failed: CUDA error {err}")
-    stencil.launches += 1
+    if bf16:
+        stencil.launches_bf16 += 1
+    else:
+        stencil.launches += 1
     return y, sums, sqs
 
 
 stencil.launches = 0
+stencil.launches_bf16 = 0
 
 
 def library() -> ctypes.CDLL:
     lib = build.library()
-    lib.misonet_stencil.argtypes = [
-        _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _P,
-    ]
-    lib.misonet_stencil.restype = _I
+    for entry in (lib.misonet_stencil, lib.misonet_stencil_bf16):
+        entry.argtypes = [
+            _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+            _I, _I, _I, _I, _I, _I, _P,
+        ]
+        entry.restype = _I
     lib.misonet_stencil_tiles.argtypes = [_I, _I, _I, _I]
     lib.misonet_stencil_tiles.restype = _I
     return lib

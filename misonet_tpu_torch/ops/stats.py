@@ -1,5 +1,7 @@
 """InstanceNorm statistics from the kernels' fused sums
-(misonet_tpu/ops/pallas/dense_flat.py::stats_to_scale_mean)."""
+(misonet_tpu/ops/pallas/dense_flat.py::stats_to_scale_mean).  Every kernel
+mode (float32, bfloat16, int8) returns its sums in float32, taken from the
+float32 outputs before any bfloat16 store, so the statistics stay float32."""
 
 from __future__ import annotations
 

@@ -1,15 +1,21 @@
-"""PyTorch port on the card: each CUDA kernel against its plain PyTorch
-version (the version the CPU tests hold to the JAX package), the fused
-MISO1 and MISO3 forwards and MISO1 train-step gradients against the plain
-path, and the MVDR stage through the solve kernel.
+"""PyTorch port on the card: each CUDA kernel (and each dtype mode) against
+its plain PyTorch version (the version the CPU tests hold to the JAX
+package), the fused MISO1 and MISO3 forwards and MISO1 train-step gradients
+against the plain path, the bf16 and int8 forwards' launches, and the MVDR
+stage through the solve kernel.
 
 Card only (marker ``cuda``); every test skips itself without a CUDA device.
 This file imports no JAX, so on a machine without JAX it runs with
 ``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda``.
 
-Tolerance: 1e-4 normalized by max-abs.  Both sides are float32 (TF32 off),
-but the kernel sums the 9*C products of each output in another order than
-cuDNN, and the fused forward chains 60 such layers."""
+Tolerance: 1e-4 normalized by max-abs in float32.  Both sides are float32
+(TF32 off), but the kernel sums the 9*C products of each output in another
+order than cuDNN, and the fused forward chains 60 such layers.  bfloat16
+modes: the plain version rounds at the kernel's points, so only the float32
+sums' order differs; a bf16-stored output (y, acc_out) may then round one
+ulp the other way: 1e-2 of max-abs; the float32 statistics 1e-4.  int8:
+the integer sums are identical, so acc_out is bit-identical and y within
+one bf16 ulp (the ELU's expm1 may differ in the last float32 bit)."""
 
 import dataclasses
 
@@ -27,6 +33,10 @@ from misonet_tpu_torch.ops.kernels.dense_stack import (  # noqa: E402
     dense_stack,
     dense_stack_plain,
 )
+from misonet_tpu_torch.ops.kernels.dense_stack_int8 import (  # noqa: E402
+    dense_stack_int8,
+    dense_stack_int8_plain,
+)
 from misonet_tpu_torch.ops.kernels.hermitian_solve import (  # noqa: E402
     hermitian_solve,
     hermitian_solve_plain,
@@ -42,6 +52,15 @@ from misonet_tpu_torch.ops.kernels.stencil_bwd import (  # noqa: E402
 )
 
 ATOL = 1e-4
+BF16_ATOL = 1e-2
+BF16 = torch.bfloat16
+
+
+def _counts(**nonzero):
+    """The launch counts of a run that launched only ``nonzero``."""
+    return {"dense_stack": 0, "dense_stack_bf16": 0, "stencil": 0,
+            "stencil_bf16": 0, "stencil_bwd": 0, "hermitian_solve": 0,
+            "dense_stack_int8": 0, **nonzero}
 
 
 @pytest.fixture
@@ -53,10 +72,22 @@ def cuda():
     return torch.device("cuda")
 
 
-def _close(got, want):
-    got, want = got.cpu().numpy(), want.cpu().numpy()
+def _close(got, want, atol=ATOL):
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
     scale = np.abs(want).max()
-    np.testing.assert_allclose(got / scale, want / scale, atol=ATOL)
+    np.testing.assert_allclose(got / scale, want / scale, atol=atol)
+
+
+def _close_mode(got, want):
+    """Outputs stored in bf16 to BF16_ATOL, float32 ones to ATOL."""
+    _close(got, want, BF16_ATOL if want.dtype == BF16 else ATOL)
+
+
+def _bf16_ulps(got, want):
+    """Largest distance of two bf16 tensors in bf16 ulps (same-sign
+    values: adjacent bf16 numbers differ by one in their 16-bit pattern)."""
+    return (got.view(torch.int16).int() - want.view(torch.int16).int()).abs(
+    ).max().item()
 
 
 def _t(rng, shape, lo=None, hi=None, scale=1.0):
@@ -147,8 +178,7 @@ def test_fused_forward_matches_plain(cuda):
         counts = launch_counts()
         model.cfg = dataclasses.replace(cfg, flat_dense=False)
         plain = model(x)
-    assert counts == {"dense_stack": 50, "stencil": 10, "stencil_bwd": 0,
-                      "hermitian_solve": 0}
+    assert counts == _counts(dense_stack=50, stencil=10)
     _close(torch.view_as_real(fused), torch.view_as_real(plain))
 
 
@@ -171,8 +201,7 @@ def test_fused_miso3_forward_matches_plain(cuda):
         model.cfg = dataclasses.replace(cfg, flat_dense=False)
         plain = model(x)
     assert fused.shape == (4, 1, 40, 129)
-    assert counts == {"dense_stack": 50, "stencil": 10, "stencil_bwd": 0,
-                      "hermitian_solve": 0}
+    assert counts == _counts(dense_stack=50, stencil=10)
     _close(torch.view_as_real(fused), torch.view_as_real(plain))
 
 
@@ -292,8 +321,7 @@ def test_fused_train_gradients_match_plain(cuda):
     counts = launch_counts()
     model.cfg = dataclasses.replace(cfg, flat_dense=False)
     plain_loss, plain = grads()
-    assert counts == {"dense_stack": 50, "stencil": 10, "stencil_bwd": 60,
-                      "hermitian_solve": 0}
+    assert counts == _counts(dense_stack=50, stencil=10, stencil_bwd=60)
     assert abs(fused_loss - plain_loss) <= 1e-4 * abs(plain_loss)
     # leaves that are zero in exact arithmetic (the gLN shift of each
     # dsconv1) hold rounding noise: max-abs floored at 1e-3 of the largest
@@ -301,3 +329,137 @@ def test_fused_train_gradients_match_plain(cuda):
     for got, want in zip(fused, plain):
         scale = max(want.abs().max().item(), floor)
         assert (got - want).abs().max().item() <= 1e-3 * scale
+
+
+DENSE_CASES = [
+    ((24,), 120, 24, False, 37, 63),
+    ((32,), 128, 32, True, 37, 63),
+    ((24, 24), 144, 24, False, 37, 63),
+    ((24,), 48, 48, True, 37, 63),
+    ((16,), 40, 8, True, 9, 255),      # REVERB width: > 48 KB shared memory
+    ((8, 4), 24, 16, False, 3, 2),     # plane smaller than one tile
+]
+
+
+def _dense_args(rng, widths, n, n_fin, with_acc, t, f, act, wdt):
+    b, c = 2, sum(widths)
+    return (
+        [_t(rng, (b, w, t, f)).to(act) for w in widths],
+        _t(rng, (b, n, t, f)).to(act) if with_acc else None,
+        _t(rng, (n, c, 3, 3), scale=0.2).to(wdt),
+        _t(rng, (n_fin,), scale=0.2),
+        _t(rng, (b, c), 0.5, 1.5),
+        _t(rng, (b, c), -0.5, 0.5),
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths,n,n_fin,with_acc,t,f", DENSE_CASES)
+def test_dense_stack_bf16_kernel_matches_plain(cuda, widths, n, n_fin,
+                                               with_acc, t, f):
+    args = _dense_args(np.random.default_rng(12), widths, n, n_fin,
+                       with_acc, t, f, BF16, BF16)
+    before = dense_stack.launches_bf16
+    got = dense_stack(*args, n_fin)
+    want = dense_stack_plain(*args, n_fin)
+    torch.cuda.synchronize()
+    assert dense_stack.launches_bf16 == before + 1
+    assert got[0].dtype == BF16 and got[1].dtype == torch.float32
+    for g, r in zip(got, want):
+        if r is None:
+            assert g is None
+        else:
+            _close_mode(g, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths,n,n_fin,with_acc,t,f", DENSE_CASES)
+def test_dense_stack_int8_kernel_matches_plain(cuda, widths, n, n_fin,
+                                               with_acc, t, f):
+    args = _dense_args(np.random.default_rng(13), widths, n, n_fin,
+                       with_acc, t, f, BF16, torch.float32)
+    before = dense_stack_int8.launches
+    y, s, q, a = dense_stack_int8(*args, n_fin)
+    y0, s0, q0, a0 = dense_stack_int8_plain(*args, n_fin)
+    torch.cuda.synchronize()
+    assert dense_stack_int8.launches == before + 1
+    assert (a is None) == (a0 is None)
+    if a0 is not None:
+        assert torch.equal(a, a0)           # the same integer sums
+    assert _bf16_ulps(y, y0) <= 1
+    _close(s, s0)
+    _close(q, q0)
+
+
+@pytest.mark.cuda
+def test_dense_stack_int8_refuses_what_it_does_not_take(cuda):
+    rng = np.random.default_rng(14)
+    args = list(_dense_args(rng, (6,), 24, 8, False, 5, 7, BF16,
+                            torch.float32))
+    with pytest.raises(ValueError, match="multiples of 4"):
+        dense_stack_int8(*args, 8)
+    args = list(_dense_args(rng, (8,), 24, 8, False, 5, 7, torch.float32,
+                            torch.float32))
+    with pytest.raises(ValueError, match="bfloat16"):
+        dense_stack_int8(*args, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,c,n,f_in,t", [
+    ("enc0", 12, 24, 129, 37), ("down", 24, 32, 127, 37),
+    ("up", 64, 24, 63, 37), ("final", 48, 4, 127, 37),
+    ("up", 5, 33, 1, 3), ("down", 3, 40, 5, 2),
+])
+def test_stencil_bf16_kernel_matches_plain(cuda, mode, c, n, f_in, t):
+    rng = np.random.default_rng(15)
+    b = 2
+    wshape = (c, n, 3, 3) if mode in ("up", "final") else (n, c, 3, 3)
+    args = [_t(rng, (b, c, t, f_in)).to(BF16),
+            _t(rng, wshape, scale=0.2).to(BF16), _t(rng, (n,), scale=0.2)]
+    if mode == "enc0":
+        args += [None, None]
+    else:
+        args += [_t(rng, (b, c), 0.5, 1.5), _t(rng, (b, c), -0.5, 0.5)]
+    before = stencil.launches_bf16
+    got = stencil(*args, mode)
+    want = stencil_plain(*args, mode)
+    torch.cuda.synchronize()
+    assert stencil.launches_bf16 == before + 1
+    assert got[0].dtype == BF16
+    for g, r in zip(got, want):
+        if r is None:
+            assert g is None
+        else:
+            _close_mode(g, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+def test_bf16_forward_launches(cuda, quant):
+    """The narrow 7-level plan at compute_dtype="bfloat16": one forward
+    launches 50 bf16 dense_stack (or, with quant_int8, 50 int8) and 10 bf16
+    stencil kernels, returns complex64, and stays within the bf16 (int8)
+    class of the plain bf16 path; under autograd the fused bf16 path
+    refuses to run."""
+    cfg = ModelConfig(en_channels=(8, 8, 8, 8, 8, 16, 16),
+                      de_channels=(16, 16, 8, 8, 8, 8, 8), tcn_repeats=1,
+                      tcn_blocks=3, tcn_channels=16, quant_int8=quant)
+    model = make_miso1(cfg, device=cuda,
+                       generator=torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(0)
+    x = torch.complex(_t(rng, (2, 6, 40, 129)), _t(rng, (2, 6, 40, 129)))
+    with torch.inference_mode():
+        reset_launch_counts()
+        fused = model(x)
+        counts = launch_counts()
+        model.cfg = dataclasses.replace(cfg, flat_dense=False)
+        plain = model(x)
+        model.cfg = cfg
+    dense = {"dense_stack_int8" if quant else "dense_stack_bf16": 50}
+    assert counts == _counts(**dense, stencil_bf16=10)
+    assert fused.dtype == torch.complex64
+    got, want = torch.view_as_real(fused), torch.view_as_real(plain)
+    err = (got - want).abs().max() / want.abs().max()
+    assert err <= (0.2 if quant else 0.05), err
+    with pytest.raises((NotImplementedError, ValueError)):
+        model(x)

@@ -29,6 +29,7 @@ import misonet_tpu_torch  # noqa: E402
 from misonet_tpu_torch import config as tcfg  # noqa: E402
 from misonet_tpu_torch.inference.evaluate import CascadeEvaluator  # noqa: E402
 from misonet_tpu_torch.models import make_miso1 as port_miso1  # noqa: E402
+from misonet_tpu_torch.models import make_miso3 as port_miso3  # noqa: E402
 from misonet_tpu_torch.utils.weights import load_jax_params  # noqa: E402
 
 ATOL = 1e-4
@@ -158,7 +159,9 @@ def test_metrics_match_jax():
 def test_evaluator_refuses_unported_modes():
     """Every evaluator mode is ported now (the default, utterance-mode
     beamforming, and the enhance nets construct); what the port still
-    refuses is the collective SCM and the bf16 compute path."""
+    refuses is the collective SCM.  A bf16 MISO1 (the JAX package's
+    default compute dtype) builds and serves unchanged: float32 waves,
+    finite scores."""
     from misonet_tpu_torch.beamforming.scm import chunked_scm
 
     model = make_miso1(SMALL, num_mics=3)
@@ -169,8 +172,18 @@ def test_evaluator_refuses_unported_modes():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         chunked_scm(torch.zeros((2, 3, 4, 17), dtype=torch.complex64),
                     axis_name="blocks")
-    with pytest.raises(ValueError, match="float32"):
-        make_miso1(dataclasses.replace(SMALL, compute_dtype="bfloat16"))
+    bf16 = dataclasses.replace(SMALL, compute_dtype="bfloat16")
+    miso3 = port_miso3(_port(bf16), num_mics=3, device="cpu")
+    rng = np.random.default_rng(8)
+    src = rng.standard_normal((2, 4500)).astype(np.float32)
+    mix = np.stack([src[0] + 0.5 * src[1], src[0] - src[1], src[1]], axis=1)
+    ev = CascadeEvaluator(make_miso1(bf16, num_mics=3), stft, ds,
+                          enhance_model=miso3)
+    res = ev.process(mix, src)
+    for wave in (res.separated, res.beamformed, res.enhanced):
+        assert wave.shape == (2, 4500) and wave.dtype == np.float32
+        assert np.isfinite(wave).all()
+    assert all(np.isfinite(v) for v in res.si_sdr.values())
 
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]

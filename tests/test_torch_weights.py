@@ -29,12 +29,12 @@ from misonet_tpu_torch.utils.weights import (  # noqa: E402
 
 
 def _narrow(**kw):
-    return ModelConfig(
-        en_channels=(8, 8, 8, 8, 8, 16, 16),
-        de_channels=(16, 16, 8, 8, 8, 8, 8),
-        tcn_repeats=1, tcn_blocks=2, tcn_channels=16,
-        compute_dtype="float32", **kw,
-    )
+    return ModelConfig(**{
+        "en_channels": (8, 8, 8, 8, 8, 16, 16),
+        "de_channels": (16, 16, 8, 8, 8, 8, 8),
+        "tcn_repeats": 1, "tcn_blocks": 2, "tcn_channels": 16,
+        "compute_dtype": "float32", **kw,
+    })
 
 
 def _jax_params(cfg):
@@ -120,14 +120,46 @@ def test_bridge_rejects_wrong_shape(narrow_params):
 
 
 @pytest.mark.parametrize("kw,err", [
-    ({"compute_dtype": "bfloat16"}, ValueError),
-    ({"compute_dtype": "float32", "quant_int8": True}, ValueError),
+    ({"compute_dtype": "float16"}, ValueError),
+    ({"compute_dtype": "float16", "quant_int8": True}, ValueError),
     ({"compute_dtype": "float32", "sequence_parallel": True},
      NotImplementedError),
 ])
 def test_unported_settings_raise(kw, err):
+    """bfloat16 and quant_int8 are ported (see below); a compute dtype the
+    port has no kernels for and the sequence-parallel TCN still raise."""
     with pytest.raises(err):
         make_miso1(ModelConfig(**kw))
+
+
+@pytest.mark.parametrize("kw", [
+    {"compute_dtype": "bfloat16"},
+    {"compute_dtype": "bfloat16", "quant_int8": True},
+    {"compute_dtype": "float32", "quant_int8": True},
+])
+def test_bridge_fills_bf16_and_int8_models(kw, narrow_params):
+    """The bf16 and int8 models build, the bridge fills them with the same
+    float32 parameters as the float32 model (parameters stay float32 and are
+    cast at use, as in JAX), and on the CPU, where the plain modules run and
+    quant_int8 does not apply, the int8 model computes exactly what the
+    model of its compute dtype without it does."""
+    ref = load_jax_params(make_miso1(_narrow()), narrow_params).state_dict()
+    model = load_jax_params(make_miso1(_narrow(**kw)), narrow_params)
+    sd = model.state_dict()
+    assert sd.keys() == ref.keys()
+    for k, v in sd.items():
+        assert v.dtype == torch.float32 and torch.equal(v, ref[k]), k
+    plain = load_jax_params(
+        make_miso1(_narrow(compute_dtype=kw["compute_dtype"])), narrow_params)
+    x = torch.from_numpy((np.random.default_rng(4).standard_normal(
+        (1, 6, 4, 129, 2))).astype(np.float32))
+    x = torch.view_as_complex(x)
+    with torch.no_grad():
+        out = model(x)
+        want = plain(x)
+    assert out.dtype == torch.complex64 and out.shape == (1, 2, 4, 129)
+    assert torch.isfinite(torch.view_as_real(out)).all()
+    assert torch.equal(out, want)
 
 
 def test_fused_path_needs_cuda():

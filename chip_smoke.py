@@ -28,11 +28,13 @@ Phases (one or more JSON lines each; any failure exits non-zero):
   7. train    the full-width wave train step [8, 6, 501, 129] (seeded
               synthetic 2-speaker 4 s mixtures, Adam lr 1e-3, NaN guard
               on): fused vs plain loss and gradients from the same weights
-              (bound 1e-3), bit-identical repeat gradients, 5 fused steps
-              on the repeated batch with exactly 50 dense_stack, 10
-              stencil and 60 stencil_bwd launches per step and a falling
-              loss, step times and peak memory of both paths, and a
-              torch.profiler breakdown of one fused step
+              (bound 1e-3 per tensor and per group in relative L2, or 2x
+              the plain path's movement under the probe), bit-identical
+              repeat gradients, 5 fused steps on the repeated batch with
+              exactly 50 dense_stack, 10 stencil and 60 stencil_bwd
+              launches per step and a falling loss, step times and peak
+              memory of both paths, and a torch.profiler breakdown of one
+              fused step
   8. solve-kernel  hermitian_solve against hermitian_solve_plain run in
               float64, M = 6, 258 / 1,032 / 262,144 seeded PD systems (the
               utterance- and chunk-mode MVDR of a 12.3 s request, and a
@@ -73,6 +75,25 @@ Phases (one or more JSON lines each; any failure exits non-zero):
               joint): 100 dense_stack_bf16, 20 stencil_bf16 and 1
               hermitian_solve launches per request
  16. css      bf16 StreamingCSS blocks: 50 / 10 / 1 launches per block
+ 17. bf16-bwd-kernels  the bf16 mode of stencil_bwd at phase 6's cases
+              and the enhancement nets' enc0 and final layers, against its
+              roundings with float64 sums (bwd_reference): dx (bf16)
+              within 1e-2 of max-abs, the float32 outputs (dW, dbias,
+              dscale, dmean) within 1e-4; times of kernel, plain version
+              (float32 convs of the bf16 operands) and cuDNN's bf16
+              backward pair; the bound at the bf16 tensor-core rate
+ 18. bf16-train  phase 7 for ModelConfig() (bf16): fused vs plain bf16
+              gradients per group, as one vector, within max(1e-2, 2x the
+              plain path's movement under the probe) in relative L2 (per
+              tensor max-abs reported only), 5 fused steps with exactly 50
+              dense_stack_bf16, 10 stencil_bf16 and 60 stencil_bwd_bf16
+              launches each and a falling loss, step times, peak memory
+              and a profile
+ 19. cli      the port's command line (misonet_tpu_torch/cli.py) on a
+              synthetic 8-utterance corpus at configs/smswsj.yml's plan
+              (bf16): Extraction, Train MISO1, a resumed second epoch,
+              Train MISO3, Test MISO3, Test CSS; finite losses,
+              checkpoints, wavs, and the kernels' launches in each command
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Needs one CUDA device; exits 1
@@ -108,6 +129,7 @@ BF16_FORWARD_BOUND = 4e-2
 INT8_FORWARD_BOUND = 2e-1
 CASCADE_BOUND = 1e-3  # fused vs plain beamformed / enhanced waves
 TRAIN_BOUND = 1e-3  # fused vs plain train-step gradients (60 layers deep)
+BF16_TRAIN_BOUND = 1e-2  # the same at bf16: two bf16 ulps
 B, T = 6, 501  # M = 6 circular shifts of one 4 s chunk
 TRAIN_B = 8    # utterances of 4 s per train step (bench.py --train)
 TRAIN_STEPS = 5
@@ -226,22 +248,27 @@ def widen(t: torch.Tensor) -> torch.Tensor:
 
 def check_kernel(name, kernel, plain, args, record, flops, library,
                  in_float64=False, phase="kernels", to_record=True,
-                 peak=PEAK_FLOPS, extra=None, reps=10):
+                 peak=PEAK_FLOPS, extra=None, reps=10, reference=None):
     """Compare one kernel call with its plain version; time both and the
     library call ``library`` (a PyTorch call computing the same function,
     or None where there is none); add the call's bound at ``peak``
     operations per second.  Each output is held to BOUND, a bf16-stored
     one to BF16_BOUND.  ``in_float64``: the plain version runs on the
-    inputs widened to float64 for the comparison (its float32 run is then
-    reported beside the kernel).  ``to_record``: add the times to the
-    kernel's record (its main-path cases).  ``extra``: more numbers for the
-    case's line; ``reps``: timed calls of the plain version."""
+    inputs widened to float64 for the comparison; ``reference``: a
+    function of ``args`` that gives the comparison's outputs (float64
+    sums) in place of the plain version; either way the plain version's
+    own run is reported beside the kernel.  ``to_record``: add the times
+    to the kernel's record (its main-path cases).  ``extra``: more numbers
+    for the case's line; ``reps``: timed calls of the plain version."""
     got = kernel(*args)
     extra = dict(extra or {})
     if in_float64:
-        want = plain(*[widen(a) if isinstance(a, torch.Tensor) else
-                       [widen(x) for x in a] if isinstance(a, list) else a
-                       for a in args])
+        def reference(*a):
+            return plain(*[widen(v) if isinstance(v, torch.Tensor) else
+                           [widen(x) for x in v] if isinstance(v, list) else v
+                           for v in a])
+    if reference is not None:
+        want = reference(*args)
         extra["plain_f32_max_norm_err"] = max(
             e[1] for e in output_errs(name, plain(*args), want))
     else:
@@ -255,7 +282,7 @@ def check_kernel(name, kernel, plain, args, record, flops, library,
     t_plain = cuda_ms(lambda: plain(*args), reps)
     t_kernel = cuda_ms(lambda: kernel(*args))
     t_lib = None if library is None else cuda_ms(library)
-    if record["name"] == "stencil_bwd":
+    if record["name"].startswith("stencil_bwd"):
         # the wgrad half alone: the same call without input gradients
         extra["wgrad_ms"] = cuda_ms(lambda: kernel(*args[:-1], False))
     bound, t_ops, t_bytes = bound_ms(flops, args, got, peak)
@@ -505,9 +532,40 @@ def phase_lowp_kernels(records):
                      phase="lowp-kernels", peak=PEAK_BF16)
 
 
-def phase_bwd_kernels(records):
+def bwd_reference(g, xs, w, scale, mean, mode, need_dx=True):
+    """The bf16 mode of stencil_bwd with exact sums: its bf16 operands (g,
+    w and the rounded normalized input bf16((x - mean) * scale)) widened to
+    float64, the dgrad G and the wgrad summed in float64 by the plain
+    version, then dx = bf16(scale * G), dscale = sum G (x - mean) and
+    dmean = -scale sum G in float64."""
+    from misonet_tpu_torch.ops.kernels.stencil_bwd import stencil_bwd_plain
+
+    f64 = torch.float64
+    widths = [int(x.shape[1]) for x in xs]
+    xn = normalized(xs, scale, mean).to(g.dtype).to(f64)
+    big_gs, dw, dbias, _, _ = stencil_bwd_plain(
+        g.to(f64), torch.split(xn, widths, dim=1), w.to(f64), None, None,
+        mode, need_dx, False)
+    if not need_dx:
+        return None, dw, dbias, None, None
+    big_g = torch.cat(big_gs, dim=1)
+    dscale = dmean = None
+    if scale is not None:
+        x = torch.cat(xs, dim=1).to(f64) - mean.to(f64)[:, :, None, None]
+        dscale = (big_g * x).sum(dim=(2, 3))
+        dmean = -scale.to(f64) * big_g.sum(dim=(2, 3))
+        big_g = big_g * scale.to(f64)[:, :, None, None]
+    dxs = tuple(d.to(g.dtype) for d in torch.split(big_g, widths, dim=1))
+    return dxs, dw, dbias, dscale, dmean
+
+
+def phase_bwd_kernels(records, dtype=torch.float32):
     """stencil_bwd against its plain version at the train step's shapes:
-    the cotangents of the phase-3 calls at B = 8."""
+    the cotangents of the phase-3 calls at B = 8.  float32 (phase 6): the
+    reference is the plain version run in float64.  bfloat16 (phase 17):
+    bf16 g, sources and weights, the reference ``bwd_reference`` (the
+    mode's roundings with float64 sums); dx within BF16_BOUND, the float32
+    outputs within BOUND; the library is cuDNN's bf16 backward pair."""
     import torch.nn.functional as F
     from torch.nn.grad import conv2d_input, conv2d_weight
 
@@ -515,11 +573,18 @@ def phase_bwd_kernels(records):
     from misonet_tpu_torch.ops.kernels.stencil_bwd import (
         geometry, stencil_bwd, stencil_bwd_plain)
 
-    rng = np.random.default_rng(SEED + 4)
+    bf16 = dtype == torch.bfloat16
+    rng = np.random.default_rng(SEED + (17 if bf16 else 4))
     cases = [(f"dense {name}", "dense", widths, n, f)
              for name, widths, n, _, f, _ in DENSE_CASES]
     cases += [(f"stencil {name}", mode, (c,), n, f_in)
               for name, mode, c, n, f_in in STENCIL_CASES]
+    if bf16:
+        # the enhancement nets' enc0 and final layers, as their trainers
+        # call them at the default precision (EnhanceTrainer folds the
+        # speakers into the batch; phase 19 trains MISO3 so)
+        cases += [(f"stencil {name}", mode, (c,), n, f_in)
+                  for name, mode, c, n, f_in, _ in ENHANCE_STENCIL_CASES]
     for name, mode, widths, n, f_in in cases:
         c = sum(widths)
         b = TRAIN_B
@@ -528,12 +593,12 @@ def phase_bwd_kernels(records):
         stats = ([None, None] if mode == "enc0" else
                  [rand(rng, (b, c), 0.5, 1.5), rand(rng, (b, c), -0.5, 0.5)])
         need_dx = mode != "enc0"   # the train step asks enc0 for no dx
-        args = (rand(rng, (b, n, T, f_out)),
-                [rand(rng, (b, w, T, f_in)) for w in widths],
-                rand(rng, wshape, scale=1.0 / np.sqrt(9 * c)), *stats, mode,
-                need_dx)
+        args = (rand(rng, (b, n, T, f_out)).to(dtype),
+                [rand(rng, (b, w, T, f_in)).to(dtype) for w in widths],
+                rand(rng, wshape, scale=1.0 / np.sqrt(9 * c)).to(dtype),
+                *stats, mode, need_dx)
         g, xs, w = args[:3]
-        xn = normalized(xs, *stats)
+        xn = normalized(xs, *stats).to(dtype)
         stride, padding = geometry(mode)
         if mode in ("up", "final"):
             def library():
@@ -546,13 +611,17 @@ def phase_bwd_kernels(records):
                                  padding=padding)
                 conv2d_weight(xn, w.shape, g, stride=stride, padding=padding)
         macs = conv_macs(mode, b, c, n, T, f_in)
-        # the reference is the plain version in float64: cuDNN's float32
-        # weight gradient, summing ~500,000 products, is off by up to ~1e-4
-        # of max-abs at these shapes, the kernel by ~1e-6
-        check_kernel(f"stencil_bwd {name}", stencil_bwd, stencil_bwd_plain,
-                     args, records["stencil_bwd"],
+        # the reference sums in float64: cuDNN's float32 weight gradient,
+        # summing ~500,000 products, is off by up to ~1e-4 of max-abs at
+        # these shapes, the kernel by ~1e-6
+        check_kernel(f"stencil_bwd{' bf16' if bf16 else ''} {name}",
+                     stencil_bwd, stencil_bwd_plain, args,
+                     records["stencil_bwd_bf16" if bf16 else "stencil_bwd"],
                      2 * macs * (2 if need_dx else 1), library,
-                     in_float64=True, phase="bwd-kernels")
+                     in_float64=not bf16,
+                     reference=bwd_reference if bf16 else None,
+                     phase="bf16-bwd-kernels" if bf16 else "bwd-kernels",
+                     peak=PEAK_BF16 if bf16 else PEAK_FLOPS)
 
 
 def seeded_model(cfg, device, kind="miso1", seed=SEED):
@@ -924,7 +993,14 @@ def body_macs(model, b, t):
     return dense, stencil, enc0
 
 
-def phase_train(cfg, device, records):
+def phase_train(cfg, device, records, mode="float32"):
+    """The full-width wave train step at ``mode``'s precision (phase 7:
+    float32, phase 18: bfloat16, ``ModelConfig()``): fused vs plain loss
+    and gradients from the same weights, each group within the mode's
+    bound or twice the plain path's movement under the PERTURB probe,
+    bit-identical repeat gradients, TRAIN_STEPS fused steps with exact
+    launch counts and a falling loss, step times and peak memory of both
+    paths, and a profile of one fused step."""
     from misonet_tpu_torch.config import OptimizerConfig, StftConfig
     from misonet_tpu_torch.losses import loss_upit
     from misonet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
@@ -932,6 +1008,9 @@ def phase_train(cfg, device, records):
     from misonet_tpu_torch.train import (
         create_train_state, make_optimizer, make_separate_wave_train_step)
 
+    phase = "train" if mode == "float32" else "bf16-train"
+    bound = TRAIN_BOUND if mode == "float32" else BF16_TRAIN_BOUND
+    bwd = "stencil_bwd" if mode == "float32" else "stencil_bwd_bf16"
     stft_cfg = StftConfig()
     batch = train_batch()
     fused = seeded_model(cfg, device).train()
@@ -967,7 +1046,7 @@ def phase_train(cfg, device, records):
     # forward difference, phase 4)
     noise = torch.randn(mix.shape, generator=torch.Generator().manual_seed(
         SEED + 5)).to(device)
-    _, grads_q = loss_and_grads(plain, mix * (1 + PERTURB * noise))
+    loss_q, grads_q = loss_and_grads(plain, mix * (1 + PERTURB * noise))
     identical = all(torch.equal(grads_f[k], again[k]) for k in grads_f)
     # each tensor's error over its max-abs, floored at 1e-3 of the largest
     # (leaves that are zero in exact arithmetic hold rounding noise only)
@@ -978,6 +1057,7 @@ def phase_train(cfg, device, records):
                 / max(grads_p[k].abs().max().item(), floor))
 
     groups = {}
+    sq = {}   # squared norms per group: fused - plain, probe - plain, plain
     for k in grads_p:
         grp = "body" if BODY.match(k) else "plain_modules"
         e = groups.setdefault(grp, {"tensors": 0, "within_bound": 0,
@@ -985,30 +1065,48 @@ def phase_train(cfg, device, records):
                                     "worst": None})
         ek, sk = err(grads_f, k), err(grads_q, k)
         e["tensors"] += 1
-        e["within_bound"] += ek <= TRAIN_BOUND
+        e["within_bound"] += ek <= bound
         if ek > e["max_err"]:
             e["max_err"], e["worst"] = ek, k
         e["max_sensitivity"] = max(e["max_sensitivity"], sk)
+        acc = sq.setdefault(grp, [0.0, 0.0, 0.0])
+        for i, d in enumerate((grads_f[k] - grads_p[k], grads_q[k] - grads_p[k],
+                               grads_p[k])):
+            acc[i] += d.double().square().sum().item()
+    for grp, (df, dq, p2) in sq.items():
+        # the group's gradients as one vector: relative L2 distances
+        groups[grp]["l2_rel_err"] = (df / p2) ** 0.5
+        groups[grp]["l2_sensitivity"] = (dq / p2) ** 0.5
     loss_err = abs(loss_f - loss_p) / abs(loss_p)
+    loss_sens = abs(loss_q - loss_p) / abs(loss_p)
     del again, grads_f, grads_p, grads_q
-    print(json.dumps({"phase": "train", "check": "fused vs plain, step 1",
-                      "shape": [TRAIN_B, 6, T, 129],
+    print(json.dumps({"phase": phase, "check": "fused vs plain, step 1",
+                      "precision": mode, "shape": [TRAIN_B, 6, T, 129],
                       "loss_fused": loss_f, "loss_plain": loss_p,
-                      "loss_rel_err": loss_err, "bound": TRAIN_BOUND,
+                      "loss_rel_err": loss_err,
+                      "loss_sensitivity": loss_sens, "bound": bound,
                       "perturbation": PERTURB, "gradients": groups,
                       "plain_nondeterministic_spread": spread,
                       "repeat_bit_identical": identical}), flush=True)
-    if not (np.isfinite(loss_f) and loss_err <= TRAIN_BOUND):
-        fail(f"train: fused vs plain loss error {loss_err}")
+    if not (np.isfinite(loss_f) and loss_err <= bound):
+        fail(f"{phase}: fused vs plain loss error {loss_err}")
     for grp, e in groups.items():
         # a gradient may differ as much as the plain path's own does under
-        # a rounding-sized perturbation of its input, within a factor 2
-        if not e["max_err"] <= max(TRAIN_BOUND, 2 * e["max_sensitivity"]):
-            fail(f"train: {grp} gradients differ by {e['max_err']} "
+        # a rounding-sized perturbation of its input, within a factor 2: the
+        # group as one vector (relative L2) in both modes, and each tensor's
+        # max-abs in float32 (at bf16 single elements move by more than
+        # their tensor's typical value, so there they are reported only)
+        if not e["l2_rel_err"] <= max(bound, 2 * e["l2_sensitivity"]):
+            fail(f"{phase}: {grp} gradients differ by {e['l2_rel_err']} "
+                 f"(relative L2), the plain path's sensitivity is "
+                 f"{e['l2_sensitivity']}")
+        if mode == "float32" and not (
+                e["max_err"] <= max(bound, 2 * e["max_sensitivity"])):
+            fail(f"{phase}: {grp} gradients differ by {e['max_err']} "
                  f"({e['worst']}), the plain path's sensitivity is "
                  f"{e['max_sensitivity']}")
     if not identical:
-        fail("train: a second backward gave other fused gradients")
+        fail(f"{phase}: a second backward gave other fused gradients")
 
     # the main path: TRAIN_STEPS fused wave train steps
     opt_cfg = OptimizerConfig(lr=1e-3)
@@ -1020,18 +1118,19 @@ def phase_train(cfg, device, records):
     times, metrics = step_ms(step, state, batch, TRAIN_STEPS)
     counts = launch_counts()
     peak_fused = torch.cuda.max_memory_allocated() / 2**30
-    want = expect("float32", 50 * TRAIN_STEPS, 10 * TRAIN_STEPS,
-                  stencil_bwd=60 * TRAIN_STEPS)
+    want = expect(mode, 50 * TRAIN_STEPS, 10 * TRAIN_STEPS,
+                  **{bwd: 60 * TRAIN_STEPS})
     losses = [m["loss"] for m in metrics]
-    print(json.dumps({"phase": "train", "path": "fused", "steps": TRAIN_STEPS,
+    print(json.dumps({"phase": phase, "path": "fused", "steps": TRAIN_STEPS,
                       "launches": counts, "losses": losses,
                       "grad_norms": [m["grad_norm"] for m in metrics],
                       "step_ms": times, "peak_gib": peak_fused}), flush=True)
     if counts != want:
-        fail(f"train launched {counts}, expected {want}")
+        fail(f"{phase} launched {counts}, expected {want}")
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
-        fail(f"train: loss not finite and falling: {losses}")
-    for name in ("dense_stack", "stencil", "stencil_bwd"):
+        fail(f"{phase}: loss not finite and falling: {losses}")
+    # the bf16 forward modes keep the launches of their forward (phase 12)
+    for name in ((*MODES[mode], bwd) if mode == "float32" else (bwd,)):
         records[name]["launches"] = counts[name]
 
     # the plain path's step time and memory
@@ -1042,19 +1141,20 @@ def phase_train(cfg, device, records):
     torch.cuda.reset_peak_memory_stats()
     ptimes, _ = step_ms(pstep, pstate, batch, 3)
     peak_plain = torch.cuda.max_memory_allocated() / 2**30
-    print(json.dumps({"phase": "train", "path": "plain", "step_ms": ptimes,
+    print(json.dumps({"phase": phase, "path": "plain", "step_ms": ptimes,
                       "peak_gib": peak_plain}), flush=True)
 
     dense, sten, enc0 = body_macs(fused, TRAIN_B, T)
     bwd_flop = 2 * (2 * (dense + sten) - enc0)  # dgrad + wgrad, no enc0 dx
-    print(json.dumps({"phase": "train", "work": "per step, fused body",
+    peak = PEAK_FLOPS if mode == "float32" else PEAK_BF16
+    print(json.dumps({"phase": phase, "work": "per step, fused body",
                       "forward_gflop": 2 * (dense + sten) / 1e9,
                       "stencil_bwd_gflop": bwd_flop / 1e9,
-                      "stencil_bwd_bound_ms": bwd_flop / PEAK_FLOPS * 1e3}),
+                      "stencil_bwd_bound_ms": bwd_flop / peak * 1e3}),
           flush=True)
 
     prof = profile_call(lambda: step(state, *batch))
-    print(json.dumps({"phase": "train", "profile": "one fused step", **prof}),
+    print(json.dumps({"phase": phase, "profile": "one fused step", **prof}),
           flush=True)
 
 
@@ -1296,6 +1396,117 @@ def phase_css(cfg, device, device_line, mode="float32"):
                  f"expected {want}")
 
 
+CLI_UTTS, CLI_SECONDS = 8, 6.0  # phase 19's synthetic corpus
+
+
+def phase_cli(device_line):
+    """The port's command line end to end on the card (``cli.main`` in
+    this process; the extraction as ``python -m misonet_tpu_torch``): a
+    synthetic corpus made with
+    the port's synth_mixture (CLI_UTTS 6-mic utterances of CLI_SECONDS s,
+    2 speakers), configs/smswsj.yml's full-width plan at bf16 with
+    batch 4 and one epoch, then Extraction -> Train MISO1 -> a resume for
+    a second epoch -> Train MISO3 -> Test MISO3 (2 utterances) -> Test CSS
+    (1 utterance).  Checks finite losses, the checkpoints, the written
+    wavs, stencil_bwd_bf16 launches in both trainings and hermitian_solve
+    launches in MISO3's feature step; times each command."""
+    import tempfile
+    from pathlib import Path
+
+    import yaml
+
+    from misonet_tpu_torch import cli
+    from misonet_tpu_torch.data.synthetic import synth_mixture
+    from misonet_tpu_torch.data.wavio import write_wav
+    from misonet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    with tempfile.TemporaryDirectory(prefix="misonet_cli_") as tmp:
+        root = Path(tmp)
+        for sub in ("observation", "speech_source"):
+            (root / "corpus" / sub).mkdir(parents=True)
+        for u in range(CLI_UTTS):
+            d = synth_mixture(SEED + u, int(CLI_SECONDS * 8000), 6,
+                              voiced=True)
+            write_wav(root / "corpus" / "observation" / f"utt{u}.wav",
+                      d["mix"], 8000)
+            for s in range(2):
+                write_wav(root / "corpus" / "speech_source" / f"utt{u}_{s}.wav",
+                          d["ref"][s], 8000)
+        raw = yaml.safe_load(Path("configs/smswsj.yml").read_text())
+        raw["SMS_WSJ"].update(rootdir=f"{root}/corpus/",
+                              saved_tr_pickle_dir=f"{root}/shards/",
+                              saved_dt_pickle_dir=f"{root}/shards/")
+        raw["dataloader"]["Train"]["batch_size"] = 4
+        raw["trainer_sp"].update(epochs=1, print_freq=1, check_point=[True, 1],
+                                 save_folder=f"{root}/miso1")
+        raw["trainer_en"].update(epochs=1, print_freq=1, check_point=[True, 1],
+                                 save_folder=f"{root}/miso3",
+                                 MISO1_path=f"{root}/miso1/best")
+        yml = root / "run.yml"
+
+        def run(name, *argv, own_process=False, **updates):
+            for section, values in updates.items():
+                raw[section].update(values)
+            yml.write_text(yaml.safe_dump(raw))
+            argv = ["-c", str(yml), *argv, "-n", str(root / name)]
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            if own_process:
+                # as a user runs it: the extraction's spawned workers then
+                # import the CLI, not this script (which imports torch)
+                subprocess.run([sys.executable, "-m", "misonet_tpu_torch",
+                                *argv], check=True, timeout=600,
+                               cwd=Path(__file__).resolve().parent)
+            else:
+                cli.main(argv)
+                torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = {k: v for k, v in launch_counts().items() if v}
+            print(json.dumps({"phase": "cli", "command": name,
+                              "argv": argv[2:-2], "seconds": dt,
+                              "launches": counts, "device": device_line}),
+                  flush=True)
+            return counts
+
+        def history(folder, tag):
+            meta = json.loads((root / folder / f"{tag}.meta.json").read_text())
+            return meta["history"]
+
+        run("extraction", "-m", "Extraction", own_process=True)
+        shards = len(list((root / "shards").glob("*.npz")))
+        counts = run("train_miso1", "-m", "Train", "-t", "MISO1")
+        hist1 = history("miso1", "epoch000")
+        if not counts.get("stencil_bwd_bf16"):
+            fail(f"cli: MISO1 training launched {counts}")
+        resume = run("resume_miso1", "-m", "Train", "-t", "MISO1",
+                     trainer_sp={"epochs": 2, "model_load": [True, "epoch000"]})
+        hist2 = history("miso1", "epoch001")
+        counts3 = run("train_miso3", "-m", "Train", "-t", "MISO3")
+        hist3 = history("miso3", "epoch000")
+        if not (counts3.get("stencil_bwd_bf16")
+                and counts3.get("hermitian_solve")):
+            fail(f"cli: MISO3 training launched {counts3}")
+        run("test_miso3", "-m", "Test", "-t", "MISO3", "--max-utts", "2")
+        run("test_css", "-m", "Test", "-t", "CSS", "--max-utts", "1")
+        wavs = {name: len(list((root / name / "wav_out").rglob("*.wav")))
+                for name in ("test_miso3", "test_css")}
+        losses = [*hist1["train"], *hist1["val"], *hist2["train"],
+                  *hist2["val"], *hist3["train"], *hist3["val"]]
+        print(json.dumps({"phase": "cli", "shards": shards,
+                          "miso1_history": hist2, "miso3_history": hist3,
+                          "resume_launches": resume, "wavs": wavs}),
+              flush=True)
+        if shards != CLI_UTTS * 3:
+            fail(f"cli: extraction wrote {shards} shards")
+        if not (len(hist2["train"]) == 2 and hist2["train"][0]
+                == hist1["train"][0] and all(np.isfinite(losses))):
+            fail(f"cli: histories {hist1} {hist2} {hist3}")
+        # 2 utterances x 2 speakers x (MISO1, Beamforming, Enhanced); CSS:
+        # 1 utterance x 2 speakers x (miso1, beamformed)
+        if wavs != {"test_miso3": 12, "test_css": 4}:
+            fail(f"cli: wrote {wavs} wavs")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -1347,6 +1558,8 @@ def main() -> int:
              "stencil"),
             ("dense_stack_int8", "misonet_tpu/ops/pallas/dense_stack.py:357",
              None),
+            ("stencil_bwd_bf16", "misonet_tpu/ops/pallas/stencil_bwd.py:300",
+             "stencil_bwd"),
         ]
     }
     seconds = {"build": time.perf_counter() - t0}
@@ -1407,12 +1620,20 @@ def main() -> int:
     timed("bf16-cascade", phase_cascade, bf16_cfg, device, smi, records,
           "bfloat16")
     timed("bf16-css", phase_css, bf16_cfg, device, smi, "bfloat16")
+
+    # 17-18. bf16 training: the bf16 mode of stencil_bwd, then the step
+    timed("bf16-bwd-kernels", phase_bwd_kernels, records, torch.bfloat16)
+    timed("bf16-train", phase_train, bf16_cfg, device, records, "bfloat16")
+
+    # 19. the port's CLI end to end
+    timed("cli", phase_cli, smi)
     print(json.dumps({"phase": "timing", "seconds": seconds}), flush=True)
 
     # every time is the sum over that kernel's main-path cases in phase 3,
-    # 6, 8 or 11; launches are those of the train path's run (phase 7), of
-    # the cascade's requests (phase 9) for hermitian_solve, and of the bf16
-    # and int8 forwards (phases 12-13) for the bf16 and int8 modes
+    # 6, 8, 11 or 17; launches are those of the train path's run (phase 7,
+    # and phase 18 for stencil_bwd_bf16), of the cascade's requests (phase
+    # 9) for hermitian_solve, and of the bf16 and int8 forwards (phases
+    # 12-13) for their forward modes
     for r in records.values():
         r["bound_by"] = ("operations" if r.pop("ops_ms") >= r.pop("bytes_ms")
                          else "bytes")

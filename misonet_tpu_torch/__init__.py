@@ -15,15 +15,21 @@ module names so each counterpart is easy to find:
   * ``inference``                  circular-shift decode, the MISO1 -> MVDR
                                    -> MISO3/MISO2 cascade and its evaluator,
                                    streaming CSS
-  * ``data.wavio``                 wav reading and writing
+  * ``data``                       extraction, shards and batches, wav I/O,
+                                   synthetic corpora, precomputed features
   * ``losses`` / ``train``         uPIT and enhancement losses; optimizer,
-                                   train state and the train/eval steps
-  * ``utils.weights``              JAX params -> port ``state_dict``
-  * ``config``                     the configuration dataclasses (a copy of
-                                   the JAX package's)
+                                   train state, the train/eval steps and
+                                   the trainers
+  * ``utils``                      checkpoints, metric writer, profiling;
+                                   JAX params -> port ``state_dict``
+  * ``config``                     the configuration and its YAML reader (a
+                                   copy of the JAX package's)
+  * ``cli`` (``python -m misonet_tpu_torch``)  run.py's modes and flags
 
-Everything computes in float32 on NCHW ``[B, C, T, F]`` tensors.  The port
-imports ``torch`` and nothing of the JAX package.
+Tensors are NCHW ``[B, C, T, F]``; the networks compute in float32 or, as
+the JAX package by default, bfloat16 (``ModelConfig.compute_dtype``), with
+float32 parameters.  The port imports ``torch`` and nothing of the JAX
+package.
 """
 
 __version__ = "0.1.0"

@@ -1,17 +1,20 @@
-"""The configuration dataclasses of the port (a copy of those in
-misonet_tpu/config.py that the port uses).
+"""The configuration of the port (a copy of misonet_tpu/config.py).
 
-Fields and defaults are the JAX package's, verbatim, so the same values
-mean the same model, optimizer and run; the port keeps its own copy so that
-it imports nothing of the JAX package.  The option the port does not
-implement yet (``sequence_parallel``) is refused where a model is built
-(``models.miso.check_config``).
+Fields and defaults are the JAX package's, verbatim, and :func:`load_yaml`
+reads the same reference-layout YAML files into the same values, so the
+same file means the same model, optimizer and run; the port keeps its own
+copy so that it imports nothing of the JAX package.  What the port does
+not implement yet is refused: ``sequence_parallel`` where a model is built
+(``models.miso.check_config``), more than one device in ``MeshConfig``
+where a ``Config`` is made (the port runs on one card; ``parallel/`` is
+not ported).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from pathlib import Path
+from typing import Any, Sequence
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,5 +159,138 @@ class TrainerConfig:
     overest_alpha: float = 0.0
 
 
-__all__ = ["DatasetConfig", "ModelConfig", "OptimizerConfig", "StftConfig",
-           "TrainerConfig"]
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh / parallelism settings (new capability; reference is
+    single-GPU, run.py:68)."""
+
+    data_axis: str = "data"
+    num_devices: int = 0        # 0 -> use all visible devices
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    stft: StftConfig = StftConfig()
+    dataset: DatasetConfig = DatasetConfig()
+    miso1: ModelConfig = ModelConfig()
+    miso2: ModelConfig = ModelConfig()
+    miso3: ModelConfig = ModelConfig()
+    optimizer: OptimizerConfig = OptimizerConfig()
+    trainer_sp: TrainerConfig = TrainerConfig()
+    trainer_en: TrainerConfig = TrainerConfig()
+    mesh: MeshConfig = MeshConfig()
+
+    def __post_init__(self):
+        if self.mesh.num_devices > 1:
+            raise NotImplementedError(
+                f"mesh.num_devices={self.mesh.num_devices}: the port runs on "
+                "one card; the data-parallel mesh (misonet_tpu/parallel/) is "
+                "not ported yet (ROADMAP section 0)"
+            )
+
+
+def _model_from_yaml(d: dict[str, Any]) -> ModelConfig:
+    en = tuple(d.get("en_bottleneck_channels", ModelConfig.en_channels))
+    return ModelConfig(
+        num_bottleneck=d.get("num_bottleneck", 7),
+        en_channels=en,
+        de_channels=tuple(d.get("de_bottleneck_channels", ModelConfig.de_channels)),
+        norm_type=d.get("norm_type", "IN"),
+        # TCN width must match the bottleneck (the reference hard-codes 128
+        # == its en[-1], model.py:31); derive it so custom plans stay valid.
+        tcn_channels=int(d.get("tcn_channels", en[-1])),
+        tcn_repeats=int(d.get("tcn_repeats", 2)),
+        tcn_blocks=int(d.get("tcn_blocks", 7)),
+        flat_dense=d.get("flat_dense", "auto"),
+        quant_int8=bool(d.get("quant_int8", False)),
+    )
+
+
+def load_yaml(path: str | Path) -> Config:
+    """Load a reference-layout YAML (NN_BSS.yml style) into a typed Config
+    (misonet_tpu/config.py::load_yaml, the same keys and defaults)."""
+    import yaml
+
+    with open(path) as f:
+        raw = yaml.safe_load(f)
+
+    stft_raw = raw.get("STFT", {})
+    stft = StftConfig(
+        fs=stft_raw.get("fs", 8000),
+        window=stft_raw.get("window", "hann"),
+        length=stft_raw.get("length", 256),
+        overlap=stft_raw.get("overlap", 192),
+    )
+
+    ds_name = "SMS_WSJ" if "SMS_WSJ" in raw else next(iter(raw))
+    ds_raw = raw.get("SMS_WSJ", raw.get(ds_name, {})) or {}
+    dataset = DatasetConfig(
+        name=ds_name,
+        fs=ds_raw.get("fs", 8000),
+        chunk_time=ds_raw.get("chunk_time", 4.0),
+        least_time=ds_raw.get("least_time", 2.0),
+        num_spks=ds_raw.get("num_spks", 2),
+        num_ch=ds_raw.get("num_ch", 6),
+        ref_ch=ds_raw.get("ref_ch", 0),
+        num_ch_utilize=ds_raw.get("num_ch_utilize", ds_raw.get("num_ch", 6)),
+        root_dir=ds_raw.get("rootdir", ""),
+        pickle_dir=ds_raw.get("saved_tr_pickle_dir", ""),
+        dev_pickle_dir=ds_raw.get("saved_dt_pickle_dir", ""),
+        mix_subdir=ds_raw.get("mix", "observation"),
+        clean_subdir=ds_raw.get("clean", "speech_source"),
+        early_subdir=ds_raw.get("early", "early"),
+        tail_subdir=ds_raw.get("tail", "tail"),
+        noise_subdir=ds_raw.get("noise", "noise"),
+        save_early=bool((ds_raw.get("save_flag") or {}).get("early", False)),
+        save_tail=bool((ds_raw.get("save_flag") or {}).get("tail", False)),
+        save_noise=bool((ds_raw.get("save_flag") or {}).get("noise", False)),
+    )
+
+    opt_raw = raw.get("optimizer", {})
+    sch_raw = raw.get("scheduler", {})
+    tr_sp_raw = raw.get("trainer_sp", {})
+    tr_en_raw = raw.get("trainer_en", {})
+    dl_raw = raw.get("dataloader", {}).get("Train", {})
+
+    optimizer = OptimizerConfig(
+        name=str(opt_raw.get("name", "Adam")).lower(),
+        lr=float(opt_raw.get("lr", 1e-3)),
+        weight_decay=float(opt_raw.get("weight_decay", 0.0)),
+        clipping=bool(tr_sp_raw.get("clipping", False)),
+        max_norm=float(tr_sp_raw.get("max_norm", 5.0)),
+        scheduler=str(sch_raw.get("name", "plateau")),
+        plateau_factor=float(sch_raw.get("factor", 0.5)),
+        plateau_patience=int(sch_raw.get("patience", 3)),
+        min_lr=float(sch_raw.get("min_lr", 5e-6)),
+    )
+
+    def _trainer(d: dict[str, Any]) -> TrainerConfig:
+        model_load = d.get("model_load", [False, ""])
+        return TrainerConfig(
+            epochs=int(d.get("epochs", 100)),
+            batch_size=int(dl_raw.get("batch_size", 20)),
+            early_stop=bool(d.get("early_stop", True)),
+            print_freq=int(d.get("print_freq", 10)),
+            save_folder=str(d.get("save_folder", "model_result/misonet_tpu")),
+            checkpoint_every=int((d.get("check_point") or [True, 5])[1]),
+            resume=str(model_load[1]) if model_load and model_load[0] else "",
+            miso1_checkpoint=str(d.get("MISO1_path", "")),
+            load_miso1_output=bool(d.get("load_MISO1_Output", False)),
+            load_mvdr_output=bool(d.get("load_MVDR_Output", False)),
+            overest_alpha=float(d.get("overest_alpha", 0.0)),
+        )
+
+    return Config(
+        stft=stft,
+        dataset=dataset,
+        miso1=_model_from_yaml(raw.get("MISO_1", {})),
+        miso2=_model_from_yaml(raw.get("MISO_2", {})),
+        miso3=_model_from_yaml(raw.get("MISO_3", {})),
+        optimizer=optimizer,
+        trainer_sp=_trainer(tr_sp_raw),
+        trainer_en=_trainer(tr_en_raw),
+    )
+
+
+__all__ = ["Config", "DatasetConfig", "MeshConfig", "ModelConfig",
+           "OptimizerConfig", "StftConfig", "TrainerConfig", "load_yaml"]

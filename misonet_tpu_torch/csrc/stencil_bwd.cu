@@ -1,9 +1,10 @@
 // stencil_bwd: the backward of the fused U-Net body convs on Hopper.
 //
 // Replaces misonet_tpu/ops/pallas/stencil_bwd.py::stencil_bwd_flat (its
-// Pallas `_kernel`), float32 ("precise") mode, the one fused backward of
-// both forward kernels: dense_stack.cu (mode DENSE) and the four stencil.cu
-// instances (ENC0, DOWN, UP, FINAL).  The forward it differentiates is
+// Pallas `_kernel`) in its float32 ("precise") and bfloat16 (precise=False,
+// the JAX package's default) modes, the one fused backward of both forward
+// kernels: dense_stack.cu (mode DENSE) and the four stencil.cu instances
+// (ENC0, DOWN, UP, FINAL).  The forward it differentiates is
 //
 //   xn = (x - mean) * scale           per (b, c), zero outside the plane
 //   z  = conv(xn, W) + bias (+ acc_in)
@@ -24,6 +25,22 @@
 // taps directly and a tap outside the plane contributes 0.  The mean term
 // of dW that the TPU kernel took from validity fields comes for free here,
 // because the wgrad reads the normalized input xn with its zero halo.
+//
+// Modes (template S, the storage type of g, the sources, the weights and
+// dx): float32 throughout, or bfloat16 with the TPU kernel's rounding
+// points: g arrives folded in float32 and rounded to bfloat16
+// (ops/kernels/flat_grad.py); the dgrad multiplies bf16 weights by bf16
+// cotangents with float32 sums; dx is rounded to bf16 for the store; sum G
+// and sum G (x - mean) come from the float32 G; the wgrad multiplies bf16
+// patch values by bf16 cotangents with float32 sums; dW, dbias and the
+// sums stay float32.  One point differs on purpose: the TPU kernel's wgrad
+// patch is the uncentred bf16(scale * x), its mean term scale * mean * M
+// subtracted in float32 outside; this patch is the centred bf16((x - mean)
+// * scale), the very values the port's forward (dense_stack.cu,
+// stencil.cu) convolved.  So dW is the gradient of the forward that ran,
+// the mean term needs no fields, and no large uncentred sum cancels against
+// the mean term in float32.  The bf16 mode does the float32 mode's FMAs
+// (no tensor cores yet); it moves half the bytes.
 //
 // Kernels, per call:
 //   dgrad_kernel<MODE>   the stencil.cu tiling (32 input channels x 256
@@ -72,7 +89,10 @@
 //     and is the slower half.  The `up` wgrad multiplies the taps of the
 //     other parity by zero, and N = 4 (final) fills a quarter of the
 //     narrowest tile.  Making them fast (wgmma, TMA, TF32 splits) is
-//     later work.
+//     later work.  The bf16 mode runs the same float32 FMAs on bf16 loads
+//     and halves the bytes; at the bf16 tensor-core rate (989 TFLOP/s)
+//     its operations and its bytes bound it about equally, far below the
+//     FMA loop's time (PERF.md).
 
 #include <algorithm>
 
@@ -152,25 +172,26 @@ constexpr int DG_MIN_BLOCKS = 3;            // per SM: caps registers at 80
 
 // Two sources (the dense mode's skip concat) are one channel axis of C =
 // c0 + c1 channels; channel c lives in source (c >= c0).
+template <typename S>
 struct Sources {
-  const float* x0;
-  const float* x1;
+  const S* x0;
+  const S* x1;
   int c0;
   int C;
   __device__ __forceinline__ size_t plane(int b, int c) const {
     return c < c0 ? (size_t)b * c0 + c : (size_t)b * (C - c0) + (c - c0);
   }
-  __device__ __forceinline__ const float* ptr(int c) const {
+  __device__ __forceinline__ const S* ptr(int c) const {
     return c < c0 ? x0 : x1;
   }
 };
 
-template <int MODE>
+template <int MODE, typename S>
 __global__ void __launch_bounds__(DG_THREADS, DG_MIN_BLOCKS)
-dgrad_kernel(const float* __restrict__ g, int N, Sources src,
+dgrad_kernel(const S* __restrict__ g, int N, Sources<S> src,
              const float* __restrict__ scale, const float* __restrict__ mean,
-             const float* __restrict__ w, float* __restrict__ dx0,
-             float* __restrict__ dx1, float* __restrict__ part, int T,
+             const S* __restrict__ w, S* __restrict__ dx0,
+             S* __restrict__ dx1, float* __restrict__ part, int T,
              int Fin, int Fo) {
   __shared__ __align__(16) float ws[DG_CK][9][WS_ROW];
   const int half = threadIdx.x / DG_LANES;
@@ -216,15 +237,15 @@ dgrad_kernel(const float* __restrict__ g, int N, Sources src,
                                                             nb, ck);
     __syncthreads();
     for (int k = 0; k < ck; ++k) {
-      const float* gp = g + ((size_t)b * N + nb + k) * TFo;
+      const S* gp = g + ((size_t)b * N + nb + k) * TFo;
       float gv[9][DG_PT];
 #pragma unroll
       for (int tap = 0; tap < 9; ++tap)
 #pragma unroll
         for (int j = 0; j < DG_PT; ++j)
           gv[tap][j] = (mask[j] >> tap) & 1
-                           ? __ldg(gp + base[j] +
-                                   tap_off<MODE>(tap / 3, tap % 3, Fo))
+                           ? ldg_f32(gp + base[j] +
+                                     tap_off<MODE>(tap / 3, tap % 3, Fo))
                            : 0.f;
 #pragma unroll
       for (int tap = 0; tap < 9; ++tap)
@@ -241,18 +262,18 @@ dgrad_kernel(const float* __restrict__ g, int N, Sources src,
     const int c = ct + half * NT + i;
     if (c >= C) continue;
     const size_t pl = src.plane(b, c) * TFi;
-    const float* xp = src.ptr(c) + pl;
-    float* dxp = (c < src.c0 ? dx0 : dx1) + pl;
+    const S* xp = src.ptr(c) + pl;
+    S* dxp = (c < src.c0 ? dx0 : dx1) + pl;
     const float sc = scale ? scale[b * C + c] : 1.f;
     const float mu = mean ? mean[b * C + c] : 0.f;
 #pragma unroll
     for (int j = 0; j < DG_PT; ++j) {
       if (pos[j] >= TFi) continue;
       const float G = acc[i][j];
-      dxp[pos[j]] = sc * G;
+      store(dxp + pos[j], sc * G);
       if (part) {
         su[i] += G;
-        sq[i] += G * (__ldg(xp + pos[j]) - mu);
+        sq[i] += G * (ldg_f32(xp + pos[j]) - mu);
       }
     }
   }
@@ -299,9 +320,9 @@ inline int wgrad_splits(int N, int C, int K) {
 // of one split.  Each chunk's 32 products are summed apart and then added
 // to the running sums, so no float sum runs over more than the split's
 // chunk count of terms.
-template <int MODE, int TN>
+template <int MODE, int TN, typename S>
 __global__ void __launch_bounds__(WG_THREADS)
-wgrad_kernel(const float* __restrict__ g, int N, Sources src,
+wgrad_kernel(const S* __restrict__ g, int N, Sources<S> src,
              const float* __restrict__ scale, const float* __restrict__ mean,
              float* __restrict__ part, int T, int Fin, int Fo, int K,
              int chunks_per_split) {
@@ -341,7 +362,7 @@ wgrad_kernel(const float* __restrict__ g, int N, Sources src,
     __syncthreads();  // the previous chunk is consumed
     for (int r = r0; r < TN; r += WG_STAGE_ROWS) {
       const int n = n0 + r;
-      as[kk][r] = kv && n < N ? __ldg(g + ((size_t)b * N + n) * TFo + p)
+      as[kk][r] = kv && n < N ? ldg_f32(g + ((size_t)b * N + n) * TFo + p)
                               : 0.f;
     }
     for (int r = r0; r < TC; r += WG_STAGE_ROWS) {
@@ -357,8 +378,10 @@ wgrad_kernel(const float* __restrict__ g, int N, Sources src,
           if (fwd_src<MODE>(t, fo, tap / 3, tap % 3, T, Fin, ti, fi)) {
             const float sc = scale ? __ldg(scale + b * C + c) : 1.f;
             const float mu = mean ? __ldg(mean + b * C + c) : 0.f;
-            v = (__ldg(src.ptr(c) + src.plane(b, c) * TFi + ti * Fin + fi) -
-                 mu) * sc;
+            // the forward's normalized input, rounded as it was there
+            v = round_as<S>(
+                (ldg_f32(src.ptr(c) + src.plane(b, c) * TFi + ti * Fin + fi) -
+                 mu) * sc);
           }
         }
       }
@@ -399,14 +422,14 @@ wgrad_kernel(const float* __restrict__ g, int N, Sources src,
   }
 }
 
-template <int MODE, int TN>
-void launch_wgrad(const float* g, int N, Sources src, const float* scale,
+template <int MODE, int TN, typename S>
+void launch_wgrad(const S* g, int N, Sources<S> src, const float* scale,
                   const float* mean, float* wpart, int T, int Fin, int Fo,
                   int K, int splits, int cps, cudaStream_t st) {
   constexpr int TC = WG_TILE / TN;
   const dim3 grid((N + TN - 1) / TN, (wgrad_cols(src.C) + TC - 1) / TC,
                   splits);
-  wgrad_kernel<MODE, TN><<<grid, WG_THREADS, 0, st>>>(
+  wgrad_kernel<MODE, TN, S><<<grid, WG_THREADS, 0, st>>>(
       g, N, src, scale, mean, wpart, T, Fin, Fo, K, cps);
 }
 
@@ -436,17 +459,17 @@ __global__ void wgrad_reduce_kernel(const float* __restrict__ part,
   dw[o] = (float)s;
 }
 
-template <int MODE>
-cudaError_t launch_bwd(const float* g, int N, Sources src, const float* scale,
-                       const float* mean, const float* w, float* dx0,
-                       float* dx1, float* dpart, float* sg, float* sgx,
+template <int MODE, typename S>
+cudaError_t launch_bwd(const S* g, int N, Sources<S> src, const float* scale,
+                       const float* mean, const S* w, S* dx0, S* dx1,
+                       float* dpart, float* sg, float* sgx,
                        float* wpart, float* dw, float* dbias, int B, int T,
                        int Fin, int Fo, cudaStream_t st) {
   const int C = src.C;
   if (dx0) {
     const int ntiles = (T * Fin + POS_TILE - 1) / POS_TILE;
     const dim3 grid(ntiles, (C + NB - 1) / NB, B);
-    dgrad_kernel<MODE><<<grid, DG_THREADS, 0, st>>>(
+    dgrad_kernel<MODE, S><<<grid, DG_THREADS, 0, st>>>(
         g, N, src, scale, mean, w, dx0, dx1, dpart, T, Fin, Fo);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
@@ -481,34 +504,15 @@ cudaError_t launch_bwd(const float* g, int N, Sources src, const float* scale,
   return cudaGetLastError();
 }
 
-}  // namespace
-}  // namespace misonet
-
-// C entry point.  All tensors float32, contiguous, on the current device:
-//   mode 0-3 as misonet_stencil (enc0, down, up, final), 4 = dense;
-//   g [B, N, T, Fo] the folded cotangent of the conv output;
-//   x0 [B, c0, T, Fin], x1 [B, c1, T, Fin] or NULL (c1 = 0; dense only);
-//   scale, mean [B, c0 + c1], or NULL (identity, enc0);
-//   w [N, C, 3, 3] for modes 0, 1, 4 and [C, N, 3, 3] for modes 2, 3;
-//   dx0, dx1 like x0, x1, or dx0 = NULL to skip the dgrad (then dpart, sg
-//   and sgx are unused);
-//   dpart [2, B, C, ceil(T*Fin/256)] scratch and sg, sgx [B, C] (sum G,
-//   sum G (x - mean)), or dpart = NULL to skip those sums;
-//   wpart [misonet_stencil_bwd_splits(), N, 9C + 1] scratch;
-//   dw like w, dbias [N].
-// Returns cudaGetLastError() after the launches (0 on success); an unknown
-// mode returns cudaErrorInvalidValue.
-extern "C" int misonet_stencil_bwd(int mode, const float* g, int N,
-                                   const float* x0, int c0, const float* x1,
-                                   int c1, const float* scale,
-                                   const float* mean, const float* w,
-                                   float* dx0, float* dx1, float* dpart,
-                                   float* sg, float* sgx, float* wpart,
-                                   float* dw, float* dbias, int B, int T,
-                                   int Fin, int Fo, void* stream) {
-  using namespace misonet;
+// Dispatch on the mode for storage type S (see the C entry points below).
+template <typename S>
+int stencil_bwd(int mode, const S* g, int N, const S* x0, int c0, const S* x1,
+                int c1, const float* scale, const float* mean, const S* w,
+                S* dx0, S* dx1, float* dpart, float* sg, float* sgx,
+                float* wpart, float* dw, float* dbias, int B, int T, int Fin,
+                int Fo, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Sources src{x0, x1 ? x1 : x0, c0, c0 + c1};
+  const Sources<S> src{x0, x1 ? x1 : x0, c0, c0 + c1};
   switch (mode) {
     case B_ENC0:
       return (int)launch_bwd<B_ENC0>(g, N, src, scale, mean, w, dx0, dx1,
@@ -533,6 +537,49 @@ extern "C" int misonet_stencil_bwd(int mode, const float* g, int N,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+}  // namespace misonet
+
+// C entry points.  All tensors contiguous, on the current device; g, x0,
+// x1, w, dx0 and dx1 float32 (misonet_stencil_bwd) or bfloat16
+// (misonet_stencil_bwd_bf16), everything else float32:
+//   mode 0-3 as misonet_stencil (enc0, down, up, final), 4 = dense;
+//   g [B, N, T, Fo] the folded cotangent of the conv output;
+//   x0 [B, c0, T, Fin], x1 [B, c1, T, Fin] or NULL (c1 = 0; dense only);
+//   scale, mean [B, c0 + c1], or NULL (identity, enc0);
+//   w [N, C, 3, 3] for modes 0, 1, 4 and [C, N, 3, 3] for modes 2, 3;
+//   dx0, dx1 like x0, x1, or dx0 = NULL to skip the dgrad (then dpart, sg
+//   and sgx are unused);
+//   dpart [2, B, C, ceil(T*Fin/256)] scratch and sg, sgx [B, C] (sum G,
+//   sum G (x - mean)), or dpart = NULL to skip those sums;
+//   wpart [misonet_stencil_bwd_splits(), N, 9C + 1] scratch;
+//   dw of w's shape (float32), dbias [N].
+// Return cudaGetLastError() after the launches (0 on success); an unknown
+// mode returns cudaErrorInvalidValue.
+extern "C" int misonet_stencil_bwd(int mode, const float* g, int N,
+                                   const float* x0, int c0, const float* x1,
+                                   int c1, const float* scale,
+                                   const float* mean, const float* w,
+                                   float* dx0, float* dx1, float* dpart,
+                                   float* sg, float* sgx, float* wpart,
+                                   float* dw, float* dbias, int B, int T,
+                                   int Fin, int Fo, void* stream) {
+  return misonet::stencil_bwd(mode, g, N, x0, c0, x1, c1, scale, mean, w,
+                              dx0, dx1, dpart, sg, sgx, wpart, dw, dbias, B,
+                              T, Fin, Fo, stream);
+}
+
+extern "C" int misonet_stencil_bwd_bf16(
+    int mode, const __nv_bfloat16* g, int N, const __nv_bfloat16* x0, int c0,
+    const __nv_bfloat16* x1, int c1, const float* scale, const float* mean,
+    const __nv_bfloat16* w, __nv_bfloat16* dx0, __nv_bfloat16* dx1,
+    float* dpart, float* sg, float* sgx, float* wpart, float* dw,
+    float* dbias, int B, int T, int Fin, int Fo, void* stream) {
+  return misonet::stencil_bwd(mode, g, N, x0, c0, x1, c1, scale, mean, w,
+                              dx0, dx1, dpart, sg, sgx, wpart, dw, dbias, B,
+                              T, Fin, Fo, stream);
 }
 
 // Splits of the wgrad's position range for a call: the leading axis of its

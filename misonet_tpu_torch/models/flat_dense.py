@@ -125,17 +125,19 @@ class DenseBlockFlat(DenseBlock):
         layers s..4 over source s's input channels, ``[sum(widths[s:]), c_s,
         3, 3]``.
 
-        When autograd records a weight, the stacks are built inside the
-        graph on every call (the ``cat`` splits ``dW_stack`` back into the
-        layers' gradients; the optimizer's in-place step changes the
-        weights each step anyway).  Otherwise they are built once per
-        dtype and rebuilt only when a weight is replaced, gets new storage
-        or an in-place update.  Weights made under ``torch.inference_mode``
-        keep no version counter, so for them the stacks are rebuilt on
-        every call."""
+        When autograd records a weight, the float32 stacks are built inside
+        the graph on every call, whatever ``dtype`` (the ``cat`` splits
+        ``dW_stack`` back into the layers' gradients; the kernels' autograd
+        Functions cast them to the sources' dtype, so the gradients stay
+        float32; the optimizer's in-place step changes the weights each
+        step anyway).  Otherwise they are built once per dtype and rebuilt
+        only when a weight is replaced, gets new storage or an in-place
+        update.  Weights made under ``torch.inference_mode`` keep no
+        version counter, so for them the stacks are rebuilt on every
+        call."""
         weights = [c.weight for c in self.convs]
         if torch.is_grad_enabled() and any(w.requires_grad for w in weights):
-            return [w.to(dtype) for w in self._stack()]
+            return self._stack()
         key = (None if any(w.is_inference() for w in weights) else
                tuple((id(w), w.data_ptr(), w._version) for w in weights))
         cache = self.__dict__.setdefault("_stacks", {})
@@ -172,8 +174,8 @@ class Enc0Flat(ConvBlock):
     statistics), like the reference feeds it to the DenseBlock."""
 
     def flat(self, x: torch.Tensor) -> Bundle:
-        y, _, _ = stencil_ad(x, self.conv.weight.to(x.dtype), self.conv.bias,
-                             None, None, "enc0")
+        y, _, _ = stencil_ad(x, self.conv.weight, self.conv.bias, None, None,
+                             "enc0")
         return identity_bundle(y)
 
 
@@ -183,8 +185,8 @@ class TrunkDownFlat(ConvBlock):
 
     def flat(self, bundle: Bundle) -> Bundle:
         (x,), scale, mean = bundle
-        y, sums, sqs = stencil_ad(x, self.conv.weight.to(x.dtype),
-                                  self.conv.bias, scale, mean, "down")
+        y, sums, sqs = stencil_ad(x, self.conv.weight, self.conv.bias, scale,
+                                  mean, "down")
         return stats_bundle(y, sums, sqs)
 
 
@@ -194,8 +196,8 @@ class DeconvUpFlat(DeconvBlock):
 
     def flat(self, bundle: Bundle) -> Bundle:
         (x,), scale, mean = bundle
-        y, sums, sqs = stencil_ad(x, self.deconv.weight.to(x.dtype),
-                                  self.deconv.bias, scale, mean, "up")
+        y, sums, sqs = stencil_ad(x, self.deconv.weight, self.deconv.bias,
+                                  scale, mean, "up")
         return stats_bundle(y, sums, sqs)
 
 
@@ -205,6 +207,5 @@ class FinalDeconvFlat(ConvTranspose2dTorch):
 
     def flat(self, bundle: Bundle) -> torch.Tensor:
         (x,), scale, mean = bundle
-        y, _, _ = stencil_ad(x, self.weight.to(x.dtype), self.bias, scale,
-                             mean, "final")
+        y, _, _ = stencil_ad(x, self.weight, self.bias, scale, mean, "final")
         return y

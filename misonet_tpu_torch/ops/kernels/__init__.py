@@ -4,7 +4,8 @@ Each kernel module holds the wrapper that launches the kernel on CUDA
 tensors, its plain PyTorch version (run for CPU tensors and used as the
 reference on the card), and a plain-int launch counter per mode on the
 wrapper: ``launches`` (float32 and the single-mode kernels) and
-``launches_bf16`` (the bfloat16 modes of ``dense_stack`` and ``stencil``)."""
+``launches_bf16`` (the bfloat16 modes of ``dense_stack``, ``stencil`` and
+``stencil_bwd``)."""
 
 from misonet_tpu_torch.ops.kernels.dense_stack import dense_stack
 from misonet_tpu_torch.ops.kernels.dense_stack_int8 import dense_stack_int8
@@ -29,6 +30,6 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict[str, int]:
     """{mode name: launches}: ``dense_stack``, ``dense_stack_bf16``,
-    ``stencil``, ``stencil_bf16``, ``stencil_bwd``, ``hermitian_solve``,
-    ``dense_stack_int8``."""
+    ``stencil``, ``stencil_bf16``, ``stencil_bwd``, ``stencil_bwd_bf16``,
+    ``hermitian_solve``, ``dense_stack_int8``."""
     return {name: getattr(k, attr) for name, k, attr in COUNTERS}

@@ -7,21 +7,28 @@ Each forward kernel gets a ``torch.autograd.Function``:
 * backward: exact, with no forward recompute.  The kernel's output ``y``
   is saved; the ELU derivative is recovered from it (1 where y > 0, else
   y + 1 = e^z) and the fused-statistics cotangents fold in as
-  dL/dy += sbar + 2 y qbar (``fold_cotangents``, in PyTorch, as the JAX
-  package's ``_fold_cts``).  What remains is the backward of the linear map
+  dL/dy += sbar + 2 y qbar (``fold_cotangents``, in PyTorch, in float32,
+  as the JAX package's ``_fold_cts``), rounded to the working dtype.
+  What remains is the backward of the linear map
   z = conv((x - mean) * scale) + bias, one ``stencil_bwd`` call.
 
-Saved tensors: y, the sources, scale, mean and the weight, as in JAX.  A
-dense call's ``acc_in`` is not saved: its gradient is the conv output's
-cotangent itself.  ``backward`` runs on autograd's thread; the kernel
-wrappers read the current CUDA stream at each launch.
+The kernels run in the sources' dtype, float32 or bfloat16 (the JAX
+package's precise=True / False).  The weight may come in float32 whatever
+that dtype: the Functions cast it for the kernels, so its gradient stays
+float32, as the JAX package keeps the parameters' (in bfloat16 the
+gradients of the sources, of ``acc_in`` and of the bfloat16 outputs are
+bfloat16; those of weights, biases and statistics float32).
+
+Saved tensors: y, the sources, scale, mean and the (cast) weight, as in
+JAX.  A dense call's ``acc_in`` is not saved: its gradient is the conv
+output's cotangent itself, in the working dtype (the TPU kernel's
+``dacc``).  ``backward`` runs on autograd's thread; the kernel wrappers
+read the current CUDA stream at each launch.
 
 ``dense_stack_ad`` / ``stencil_ad`` go through the Functions when autograd
-records, and call the kernels directly otherwise.  The backward exists in
-float32 only: a bfloat16 call under autograd raises ``NotImplementedError``
-(the bfloat16 mode of ``stencil_bwd`` is a ROADMAP item).  The int8 decode
-mode has no backward, as in the JAX package; ``dense_stack_int8_ad`` raises
-a clear ``ValueError`` when autograd records (the JAX package fails there
+records, and call the kernels directly otherwise.  The int8 decode mode
+has no backward, as in the JAX package; ``dense_stack_int8_ad`` raises a
+clear ``ValueError`` when autograd records (the JAX package fails there
 with an opaque error, dense_stack.py:630).
 """
 
@@ -39,24 +46,17 @@ _ACT = ("down", "up")
 
 def fold_cotangents(y, ybar, sbar, qbar):
     """dL/dz of ``y = ELU(z)`` with the per-(b, c) sum and sum-of-squares
-    cotangents ``sbar``/``qbar`` [B, N] folded in."""
-    g = ybar + sbar[:, :, None, None] + 2.0 * y * qbar[:, :, None, None]
-    return (g * torch.where(y > 0, 1.0, y + 1.0)).contiguous()
+    cotangents ``sbar``/``qbar`` [B, N] folded in, computed in float32 and
+    returned in ``y``'s dtype."""
+    y32 = y.float()
+    g = ybar.float() + sbar[:, :, None, None] + 2.0 * y32 * qbar[:, :, None, None]
+    g = g * torch.where(y32 > 0, 1.0, y32 + 1.0)
+    return g.to(y.dtype).contiguous()
 
 
 def _records(*tensors) -> bool:
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in tensors)
-
-
-def _refuse_bf16(x: torch.Tensor) -> None:
-    if x.dtype != torch.float32:
-        raise NotImplementedError(
-            f"the fused path trains in float32 only ({x.dtype} under "
-            "autograd): the bfloat16 mode of stencil_bwd is a ROADMAP item "
-            "(section 0); train with compute_dtype='float32' or "
-            "flat_dense=False, or run under torch.no_grad()/inference_mode"
-        )
 
 
 class DenseStackFn(torch.autograd.Function):
@@ -65,6 +65,7 @@ class DenseStackFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, n_fin, acc_in, w_stack, bias, scale, mean, *xs):
+        w_stack = w_stack.to(xs[0].dtype)
         y, sums, sqs, acc_out = dense_stack(xs, acc_in, w_stack, bias, scale,
                                             mean, n_fin)
         ctx.n_fin = n_fin
@@ -98,6 +99,7 @@ class StencilFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, mode, x, w, bias, scale, mean):
+        w = w.to(x.dtype)
         y, sums, sqs = stencil(x, w, bias, scale, mean, mode)
         ctx.mode = mode
         ctx.save_for_backward(y, x, w, scale, mean)
@@ -122,20 +124,21 @@ class StencilFn(torch.autograd.Function):
 
 
 def dense_stack_ad(xs, acc_in, w_stack, bias, scale, mean, n_fin: int):
-    """Differentiable :func:`dense_stack` (same arguments and results)."""
+    """Differentiable :func:`dense_stack` (same arguments and results;
+    ``w_stack`` may be float32 for bfloat16 sources)."""
     xs = tuple(xs)
     if not _records(*xs, acc_in, w_stack, bias, scale, mean):
-        return dense_stack(xs, acc_in, w_stack, bias, scale, mean, n_fin)
-    _refuse_bf16(xs[0])
+        return dense_stack(xs, acc_in, w_stack.to(xs[0].dtype), bias, scale,
+                           mean, n_fin)
     out = DenseStackFn.apply(n_fin, acc_in, w_stack, bias, scale, mean, *xs)
     return out if len(out) == 4 else (*out, None)
 
 
 def stencil_ad(x, w, bias, scale, mean, mode: str):
-    """Differentiable :func:`stencil` (same arguments and results)."""
+    """Differentiable :func:`stencil` (same arguments and results; ``w`` may
+    be float32 for a bfloat16 ``x``)."""
     if not _records(x, w, bias, scale, mean):
-        return stencil(x, w, bias, scale, mean, mode)
-    _refuse_bf16(x)
+        return stencil(x, w.to(x.dtype), bias, scale, mean, mode)
     out = StencilFn.apply(mode, x, w, bias, scale, mean)
     return out if mode in _ACT else (out, None, None)
 

@@ -1,7 +1,8 @@
 """Kernel 3: the fused backward of the U-Net body convs.
 
-Replaces misonet_tpu/ops/pallas/stencil_bwd.py::stencil_bwd_flat (float32
-"precise" mode), the backward of both forward kernels: ``dense_stack``
+Replaces misonet_tpu/ops/pallas/stencil_bwd.py::stencil_bwd_flat in its
+float32 ("precise") and bfloat16 (precise=False) modes, the backward of
+both forward kernels: ``dense_stack``
 (mode ``"dense"``) and the four ``stencil`` instances (``"enc0"``,
 ``"down"``, ``"up"``, ``"final"``).  It differentiates the linear part of
 the forward,
@@ -13,9 +14,19 @@ in (``ops/kernels/flat_grad.py``).  CUDA source:
 ``misonet_tpu_torch/csrc/stencil_bwd.cu`` (what bounds it on the H100 and
 how the design answers that is written at the top of that file).
 
+The mode follows the cotangent's dtype.  float32: every tensor float32.
+bfloat16: ``g``, the sources, ``w`` and the input gradients ``dxs`` are
+bfloat16; ``scale``, ``mean``, ``dw``, ``dbias``, ``dscale`` and ``dmean``
+are float32 (the parameters stay float32).  The bfloat16 mode multiplies
+bfloat16 operands (the weights and cotangents for the dgrad; the forward's
+bf16-rounded normalized input ``bf16((x - mean) * scale)`` and the
+cotangents for the wgrad) and sums in float32; ``dx`` is rounded for the
+store, ``dscale``/``dmean`` come from the float32 dgrad.
+
 ``stencil_bwd`` launches the kernel for CUDA tensors (raising on anything it
 does not take, or on a refused launch) and runs ``stencil_bwd_plain`` for
-CPU tensors.
+CPU tensors.  Each mode has its own launch counter: ``stencil_bwd.launches``
+(float32) and ``stencil_bwd.launches_bf16``.
 """
 
 from __future__ import annotations
@@ -27,6 +38,7 @@ import torch.nn.functional as F
 from torch.nn.grad import conv2d_input, conv2d_weight
 
 from misonet_tpu_torch.ops.kernels import build
+from misonet_tpu_torch.ops.kernels.dense_stack import DTYPES, check_tensor
 from misonet_tpu_torch.ops.kernels.stencil import out_bins
 
 _P = ctypes.c_void_p
@@ -46,10 +58,17 @@ def geometry(mode: str):
 def stencil_bwd_plain(g, xs, w, scale, mean, mode: str, need_dx: bool = True,
                       need_stats: bool = True):
     """Plain PyTorch version: same arguments and results as
-    :func:`stencil_bwd`."""
+    :func:`stencil_bwd`.  In the bfloat16 mode it runs float32 convs of the
+    bfloat16 operands (g, w and the bf16-rounded normalized input), so it
+    rounds at the kernel's points (with TF32 off, only the order of the
+    sums differs).  float32 and float64 inputs compute in their own type."""
+    dtype = g.dtype
+    work = torch.float32 if dtype == torch.bfloat16 else dtype
     x = torch.cat(list(xs), dim=1) if len(xs) > 1 else xs[0]
+    x, g, w = x.to(work), g.to(work), w.to(work)
     xc = x if mean is None else x - mean[:, :, None, None]
     xn = xc if scale is None else xc * scale[:, :, None, None]
+    xn = xn.to(dtype).to(work)   # the bf16 mode's rounded normalized input
     stride, padding = geometry(mode)
     if mode in _TRANSPOSE:
         # the transpose conv's input gradient is the conv of g with the same
@@ -65,6 +84,7 @@ def stencil_bwd_plain(g, xs, w, scale, mean, mode: str, need_dx: bool = True,
     if big_g is None:
         return None, dw, dbias, None, None
     dx = big_g if scale is None else big_g * scale[:, :, None, None]
+    dx = dx.to(dtype)
     dxs = tuple(torch.split(dx, [int(t.shape[1]) for t in xs], dim=1))
     dscale = dmean = None
     if need_stats and scale is not None:
@@ -73,37 +93,26 @@ def stencil_bwd_plain(g, xs, w, scale, mean, mode: str, need_dx: bool = True,
     return dxs, dw, dbias, dscale, dmean
 
 
-def _check(name, t, shape, device):
-    if t.device != device or t.dtype != torch.float32:
-        raise ValueError(
-            f"stencil_bwd: {name} must be float32 on {device}, got "
-            f"{t.dtype} on {t.device}"
-        )
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"stencil_bwd: {name} shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"stencil_bwd: {name} must be contiguous")
-
-
 def stencil_bwd(g, xs, w, scale, mean, mode: str, need_dx: bool = True,
                 need_stats: bool = True):
     """The backward of one ``dense_stack`` or ``stencil`` call.
 
     g      [B, N, T, F_out] cotangent of the conv output (all N rows of a
-           dense call: the finalized rows' then the partials')
+           dense call: the finalized rows' then the partials), float32 or
+           bfloat16 (the mode)
     xs     the forward's raw sources: 1 or 2 (``"dense"`` only) tensors
            [B, c_i, T, F_in]
     w      the forward's weight: [N, C, 3, 3] (``"dense"``, ``"enc0"``,
-           ``"down"``) or [C, N, 3, 3] (``"up"``, ``"final"``)
+           ``"down"``) or [C, N, 3, 3] (``"up"``, ``"final"``), of g's dtype
     scale  [B, C] 1/sigma and mean [B, C] of the sources; both None for
            ``"enc0"`` (identity)
     need_dx     compute the input gradients (False: dxs, dscale and dmean
                 are None, and no dgrad runs)
     need_stats  compute dscale and dmean
 
-    Returns (dxs tuple of [B, c_i, T, F_in] or None, dw like w, dbias [N]
-    summed over all N rows, dscale [B, C] or None, dmean [B, C] or None)."""
+    Returns (dxs tuple of [B, c_i, T, F_in] of g's dtype or None, dw of
+    w's shape, dbias [N] summed over all N rows, dscale [B, C] or None,
+    dmean [B, C] or None), the last four float32."""
     if mode not in MODES:
         raise ValueError(f"stencil_bwd: unknown mode {mode!r}")
     xs = tuple(xs)
@@ -122,22 +131,31 @@ def stencil_bwd(g, xs, w, scale, mean, mode: str, need_dx: bool = True,
                                  need_stats)
     if device.type != "cuda":
         raise ValueError(f"stencil_bwd: unsupported device {device}")
+    dtype = g.dtype
+    if dtype not in DTYPES:
+        raise ValueError(f"stencil_bwd: g must be float32 or bfloat16, got "
+                         f"{dtype}")
     b, _, t, f_in = xs[0].shape
     widths = [int(x.shape[1]) for x in xs]
     c = sum(widths)
     n = int(w.shape[1] if mode in _TRANSPOSE else w.shape[0])
     f_out = f_in if mode == "dense" else out_bins(mode, f_in)
+
+    def check(name, t_, shape, dt=dtype):
+        check_tensor("stencil_bwd", name, t_, shape, device, dt)
+
     for i, x in enumerate(xs):
-        _check(f"xs[{i}]", x, (b, widths[i], t, f_in), device)
-    _check("g", g, (b, n, t, f_out), device)
-    _check("w", w, (c, n, 3, 3) if mode in _TRANSPOSE else (n, c, 3, 3),
-           device)
+        check(f"xs[{i}]", x, (b, widths[i], t, f_in))
+    check("g", g, (b, n, t, f_out))
+    check("w", w, (c, n, 3, 3) if mode in _TRANSPOSE else (n, c, 3, 3))
     if scale is not None:
-        _check("scale", scale, (b, c), device)
-        _check("mean", mean, (b, c), device)
+        check("scale", scale, (b, c), torch.float32)
+        check("mean", mean, (b, c), torch.float32)
     stats = need_dx and need_stats and scale is not None
 
     lib = library()
+    bf16 = dtype == torch.bfloat16
+    entry = lib.misonet_stencil_bwd_bf16 if bf16 else lib.misonet_stencil_bwd
     dxs = tuple(torch.empty_like(x) for x in xs) if need_dx else None
     ntiles = -(-(t * f_in) // lib.misonet_pos_tile())
     dpart = (torch.empty((2, b, c, ntiles), device=device) if stats
@@ -146,14 +164,14 @@ def stencil_bwd(g, xs, w, scale, mean, mode: str, need_dx: bool = True,
     sgx = torch.empty((b, c), device=device) if stats else None
     splits = lib.misonet_stencil_bwd_splits(n, c, b * t * f_out)
     wpart = torch.empty((splits, n, 9 * c + 1), device=device)
-    dw = torch.empty_like(w)
+    dw = torch.empty(w.shape, device=device)
     dbias = torch.empty((n,), device=device)
 
     def ptr(v):
         return v.data_ptr() if v is not None else None
 
     with torch.cuda.device(device):
-        err = lib.misonet_stencil_bwd(
+        err = entry(
             MODES[mode], g.data_ptr(), n, xs[0].data_ptr(), widths[0],
             ptr(xs[1]) if len(xs) == 2 else None,
             widths[1] if len(xs) == 2 else 0,
@@ -166,7 +184,10 @@ def stencil_bwd(g, xs, w, scale, mean, mode: str, need_dx: bool = True,
         )
     if err:
         raise RuntimeError(f"stencil_bwd kernel launch failed: CUDA error {err}")
-    stencil_bwd.launches += 1
+    if bf16:
+        stencil_bwd.launches_bf16 += 1
+    else:
+        stencil_bwd.launches += 1
     dscale = dmean = None
     if stats:
         dscale, dmean = sgx, -scale * sg
@@ -174,15 +195,17 @@ def stencil_bwd(g, xs, w, scale, mean, mode: str, need_dx: bool = True,
 
 
 stencil_bwd.launches = 0
+stencil_bwd.launches_bf16 = 0
 
 
 def library() -> ctypes.CDLL:
     lib = build.library()
-    lib.misonet_stencil_bwd.argtypes = [
-        _I, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _P, _I, _I, _I, _I, _P,
-    ]
-    lib.misonet_stencil_bwd.restype = _I
+    for entry in (lib.misonet_stencil_bwd, lib.misonet_stencil_bwd_bf16):
+        entry.argtypes = [
+            _I, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+            _P, _P, _I, _I, _I, _I, _P,
+        ]
+        entry.restype = _I
     lib.misonet_stencil_bwd_splits.argtypes = [_I, _I, _I]
     lib.misonet_stencil_bwd_splits.restype = _I
     lib.misonet_pos_tile.argtypes = []

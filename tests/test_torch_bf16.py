@@ -2,7 +2,7 @@
 package's default): the plain versions of the bf16 kernel modes against the
 JAX Pallas kernels with ``precise=False`` in interpret mode, the plain
 modules and the whole plain MISO1 at bf16 against the JAX package's, and
-the bf16 fused path's refusal to train.
+the bf16 fused path under autograd.
 
 Inputs come from a numpy seed, are rounded to bfloat16 once, and go to both
 packages.  Tolerances, each normalized by the reference's max-abs:
@@ -403,17 +403,21 @@ def test_bf16_miso1_matches_jax():
 
 
 def test_bf16_fused_path_refuses_autograd():
-    """(e) the fused kernels train in float32 only: a bf16 call under
-    autograd raises NotImplementedError naming the ROADMAP item, before any
-    kernel runs."""
-    x = torch.zeros(1, 8, 4, 7, dtype=BF16, requires_grad=True)
-    w = torch.zeros(8, 8, 3, 3, dtype=BF16)
+    """(e) the fused kernels refused bf16 under autograd until the bf16 mode
+    of stencil_bwd came (tests/test_torch_stencil_bwd_bf16.py holds it to
+    JAX); a bf16 call under autograd now runs the bf16 backward: bf16
+    source gradients, float32 weight gradients (the float32 parameter cast
+    inside the Function), and the same forward as without autograd."""
+    x = torch.ones(1, 8, 4, 7, dtype=BF16, requires_grad=True)
+    w = torch.full((8, 8, 3, 3), 0.1, requires_grad=True)
     s = torch.ones(1, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dense_stack_ad([x], None, w, torch.zeros(8), s, s * 0, 8)
-    with pytest.raises(NotImplementedError, match="stencil_bwd"):
-        stencil_ad(x, w, torch.zeros(8), s, s * 0, "down")
-    with torch.no_grad():  # the same calls without autograd run
-        y, _, _, _ = dense_stack_ad([x], None, w, torch.zeros(8), s, s * 0, 8)
-    assert y.dtype == BF16
+    y, _, _, _ = dense_stack_ad([x], None, w, torch.zeros(8), s, s * 0, 8)
+    z, _, _ = stencil_ad(x, w, torch.zeros(8), s, s * 0, "down")
+    (y.float().sum() + z.float().sum()).backward()
+    assert x.grad.dtype == BF16 and w.grad.dtype == torch.float32
+    assert torch.isfinite(w.grad).all() and w.grad.abs().sum() > 0
+    with torch.no_grad():  # the same calls without autograd
+        y0, _, _, _ = dense_stack_ad([x], None, w, torch.zeros(8), s, s * 0,
+                                     8)
+    assert y.dtype == y0.dtype == BF16 and torch.equal(y, y0)
 

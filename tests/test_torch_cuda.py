@@ -1,8 +1,8 @@
 """PyTorch port on the card: each CUDA kernel (and each dtype mode) against
 its plain PyTorch version (the version the CPU tests hold to the JAX
 package), the fused MISO1 and MISO3 forwards and MISO1 train-step gradients
-against the plain path, the bf16 and int8 forwards' launches, and the MVDR
-stage through the solve kernel.
+(float32 and bf16) against the plain path, the bf16 and int8 forwards'
+launches, and the MVDR stage through the solve kernel.
 
 Card only (marker ``cuda``); every test skips itself without a CUDA device.
 This file imports no JAX, so on a machine without JAX it runs with
@@ -59,8 +59,8 @@ BF16 = torch.bfloat16
 def _counts(**nonzero):
     """The launch counts of a run that launched only ``nonzero``."""
     return {"dense_stack": 0, "dense_stack_bf16": 0, "stencil": 0,
-            "stencil_bf16": 0, "stencil_bwd": 0, "hermitian_solve": 0,
-            "dense_stack_int8": 0, **nonzero}
+            "stencil_bf16": 0, "stencil_bwd": 0, "stencil_bwd_bf16": 0,
+            "hermitian_solve": 0, "dense_stack_int8": 0, **nonzero}
 
 
 @pytest.fixture
@@ -439,8 +439,8 @@ def test_bf16_forward_launches(cuda, quant):
     """The narrow 7-level plan at compute_dtype="bfloat16": one forward
     launches 50 bf16 dense_stack (or, with quant_int8, 50 int8) and 10 bf16
     stencil kernels, returns complex64, and stays within the bf16 (int8)
-    class of the plain bf16 path; under autograd the fused bf16 path
-    refuses to run."""
+    class of the plain bf16 path; under autograd the int8 path refuses to
+    run and the bf16 path trains (test_fused_bf16_train_step)."""
     cfg = ModelConfig(en_channels=(8, 8, 8, 8, 8, 16, 16),
                       de_channels=(16, 16, 8, 8, 8, 8, 8), tcn_repeats=1,
                       tcn_blocks=3, tcn_channels=16, quant_int8=quant)
@@ -461,5 +461,90 @@ def test_bf16_forward_launches(cuda, quant):
     got, want = torch.view_as_real(fused), torch.view_as_real(plain)
     err = (got - want).abs().max() / want.abs().max()
     assert err <= (0.2 if quant else 0.05), err
-    with pytest.raises((NotImplementedError, ValueError)):
-        model(x)
+    if quant:
+        with pytest.raises(ValueError, match="decode-only"):
+            model(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,widths,n,f_in,t", [
+    ("dense", (24,), 120, 63, 37),
+    ("dense", (24, 24), 144, 63, 37),     # two sources
+    ("dense", (32,), 32, 15, 37),         # n_fin == N: the last call
+    ("dense", (8, 5), 24, 2, 3),          # plane smaller than one tile
+    ("enc0", (12,), 24, 129, 37),
+    ("down", (24,), 32, 127, 37), ("down", (3,), 40, 5, 2),
+    ("up", (64,), 24, 63, 37), ("up", (5,), 33, 1, 3),   # F_in = 1
+    ("final", (48,), 4, 127, 37), ("final", (48,), 2, 127, 37),
+])
+def test_stencil_bwd_bf16_kernel_matches_plain(cuda, mode, widths, n, f_in,
+                                               t):
+    """The bf16 mode: bf16 g, sources and weights; dx (bf16) within
+    BF16_ATOL, dW, dbias, dscale, dmean (float32) within ATOL."""
+    rng = np.random.default_rng(17)
+    b = 2
+    c = sum(widths)
+    f_out = f_in if mode == "dense" else out_bins(mode, f_in)
+    wshape = (c, n, 3, 3) if mode in ("up", "final") else (n, c, 3, 3)
+    xs = [_t(rng, (b, w, t, f_in)).to(BF16) for w in widths]
+    stats = ([None, None] if mode == "enc0" else
+             [_t(rng, (b, c), 0.5, 1.5), _t(rng, (b, c), -0.5, 0.5)])
+    args = (_t(rng, (b, n, t, f_out)).to(BF16), xs,
+            _t(rng, wshape, scale=0.2).to(BF16), *stats, mode)
+    before = stencil_bwd.launches_bf16, stencil_bwd.launches
+    got = stencil_bwd(*args)
+    want = stencil_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert (stencil_bwd.launches_bf16, stencil_bwd.launches) == (
+        before[0] + 1, before[1])
+    assert got[0][0].dtype == BF16 and got[1].dtype == torch.float32
+    for g, r in zip(got, want):
+        if r is None:
+            assert g is None
+        elif isinstance(r, tuple):
+            for gi, ri in zip(g, r):
+                _close_mode(gi, ri)
+        else:
+            _close_mode(g, r)
+
+
+@pytest.mark.cuda
+def test_fused_bf16_train_step(cuda):
+    """The narrow 7-level plan at compute_dtype="bfloat16" under autograd:
+    50 dense_stack_bf16, 10 stencil_bf16 and 60 stencil_bwd_bf16 launches;
+    float32 gradients whose distance to the plain bf16 path's (L2 over all
+    tensors, relative) is within max(2e-2, 2x the plain path's own
+    movement under a 3e-6 relative input perturbation); the loss within
+    1e-2 relative."""
+    cfg = ModelConfig(en_channels=(8, 8, 8, 8, 8, 16, 16),
+                      de_channels=(16, 16, 8, 8, 8, 8, 8), tcn_repeats=1,
+                      tcn_blocks=2, tcn_channels=16)
+    model = make_miso1(cfg, num_mics=3, device=cuda,
+                       generator=torch.Generator().manual_seed(6))
+    rng = np.random.default_rng(5)
+    x = torch.complex(_t(rng, (8, 3, 8, 129)), _t(rng, (8, 3, 8, 129)))
+    ref = torch.complex(_t(rng, (8, 2, 8, 129), scale=0.1),
+                        _t(rng, (8, 2, 8, 129), scale=0.1))
+    torch.backends.cudnn.deterministic = True
+
+    def grads(inp):
+        model.zero_grad(set_to_none=True)
+        loss = loss_enhance(model(inp), ref)
+        loss.backward()
+        return loss.item(), torch.cat([p.grad.ravel()
+                                       for p in model.parameters()])
+
+    reset_launch_counts()
+    fused_loss, fused = grads(x)
+    counts = launch_counts()
+    model.cfg = dataclasses.replace(cfg, flat_dense=False)
+    plain_loss, plain = grads(x)
+    _, moved = grads(x * (1 + 3e-6 * torch.randn(
+        x.shape, generator=torch.Generator().manual_seed(1)).to(cuda)))
+    assert counts == _counts(dense_stack_bf16=50, stencil_bf16=10,
+                             stencil_bwd_bf16=60)
+    assert fused.dtype == torch.float32 and torch.isfinite(fused).all()
+    assert abs(fused_loss - plain_loss) <= 1e-2 * abs(plain_loss)
+    err = ((fused - plain).norm() / plain.norm()).item()
+    sens = ((moved - plain).norm() / plain.norm()).item()
+    assert err <= max(2e-2, 2 * sens), (err, sens)

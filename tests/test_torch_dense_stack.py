@@ -101,9 +101,10 @@ def test_fused_dense_block_matches_plain_block():
     xa = torch.from_numpy(rng.standard_normal((b, 8, t, f)).astype(np.float32))
     xb = torch.from_numpy(rng.standard_normal((b, 8, t, f)).astype(np.float32))
     block = DenseBlockFlat(16, 8, 16)
-    init_parameters(block, torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(0)
+    init_parameters(block, gen)
     for conv in block.convs:
-        conv.bias.data.uniform_(-0.2, 0.2)
+        conv.bias.data.uniform_(-0.2, 0.2, generator=gen)
 
     def stats(x):
         mean = x.mean(dim=(2, 3))

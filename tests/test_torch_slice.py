@@ -220,7 +220,15 @@ def test_port_imports_no_jax():
             "misonet_tpu_torch.beamforming.scm",
             "misonet_tpu_torch.inference.cascade",
             "misonet_tpu_torch.inference.css",
-            "misonet_tpu_torch.data.wavio"} <= set(modules)
+            "misonet_tpu_torch.data.wavio", "misonet_tpu_torch.cli",
+            "misonet_tpu_torch.__main__", "misonet_tpu_torch.train.trainer",
+            "misonet_tpu_torch.data.dataset",
+            "misonet_tpu_torch.data.extraction",
+            "misonet_tpu_torch.data.native",
+            "misonet_tpu_torch.data.precompute",
+            "misonet_tpu_torch.utils.checkpoint",
+            "misonet_tpu_torch.utils.writer",
+            "misonet_tpu_torch.utils.profiling"} <= set(modules)
     _assert_imports_leave_out_jax(modules)
 
 

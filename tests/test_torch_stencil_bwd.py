@@ -334,11 +334,12 @@ def _in_stats(x):
 
 
 def _seeded(module, seed):
-    init_parameters(module, torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed)
+    init_parameters(module, gen)
     with torch.no_grad():
         for name, p in module.named_parameters():
             if name.endswith("bias"):
-                p.uniform_(-0.2, 0.2)
+                p.uniform_(-0.2, 0.2, generator=gen)
     return module
 
 

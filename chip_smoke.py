@@ -1,6 +1,7 @@
 """Drive the PyTorch port's serving, training, cascade and CSS paths on one
 GPU, in float32 and in the JAX package's default bfloat16 (with its int8
-DenseBlock decode mode).
+DenseBlock decode mode), the REVERB plan, and data- and sequence-parallel
+training over NCCL at world size 1.
 
     python3 chip_smoke.py
 
@@ -94,6 +95,29 @@ Phases (one or more JSON lines each; any failure exits non-zero):
               (bf16): Extraction, Train MISO1, a resumed second epoch,
               Train MISO3, Test MISO3, Test CSS; finite losses,
               checkpoints, wavs, and the kernels' launches in each command
+ 20. dense-layer  kernel 2.6 (dense_layer, one whole DenseBlock layer over
+              1-6 raw sources; no serving or training path runs it) in
+              float32 and bf16 at ModelConfig()'s enc0 and dec6 DenseBlock
+              layers and its two switches (fuse_elu=False, want_stats=
+              False), B = 6, T = 501: every case once with the counts reset
+              (exact launches), then against dense_layer_plain (1e-4; bf16
+              outputs 1e-2), times of kernel, plain version and cuDNN's
+              conv, and the bound
+ 21. reverb   the REVERB plan (configs/reverb_2mix.yml: 8 levels, F = 257,
+              8 mics, 384-channel TCN, bf16) at full width: the forward of
+              one 4 s chunk's 8 circular shifts, fused vs plain (phase 12's
+              bound), exactly 50 dense_stack_bf16 + 10 stencil_bf16
+              launches; one train step at the YAML's batch of 16 (or the
+              largest power of two whose plain step fits): fused vs plain
+              gradients with phase 18's gate, 50 / 10 / 60 launches a step,
+              step times and peak memory
+ 22. parallel parallel/ over NCCL at world size 1 (the mechanism, not
+              scaling): the data-parallel bf16 MISO1 wave train step [8, 6,
+              501, 129] bit-identical to the step without a mesh (50 / 10 /
+              60 launches), its step time beside that step's;
+              chunked_scm over the group against the unsharded SCM; the
+              full-width float32 MISO1 with the sequence-parallel TCN
+              against the local model (1e-4); dryrun_multichip(1)
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Needs one CUDA device; exits 1
@@ -624,11 +648,12 @@ def phase_bwd_kernels(records, dtype=torch.float32):
                      peak=PEAK_BF16 if bf16 else PEAK_FLOPS)
 
 
-def seeded_model(cfg, device, kind="miso1", seed=SEED):
+def seeded_model(cfg, device, kind="miso1", seed=SEED, **factory):
     from misonet_tpu_torch import models
 
     gen = torch.Generator().manual_seed(seed)
-    model = getattr(models, f"make_{kind}")(cfg, device=device, generator=gen)
+    model = getattr(models, f"make_{kind}")(cfg, device=device, generator=gen,
+                                           **factory)
     with torch.no_grad():
         for name, p in model.named_parameters():
             if name.endswith("bias"):  # non-zero biases exercise the epilogues
@@ -993,32 +1018,16 @@ def body_macs(model, b, t):
     return dense, stencil, enc0
 
 
-def phase_train(cfg, device, records, mode="float32"):
-    """The full-width wave train step at ``mode``'s precision (phase 7:
-    float32, phase 18: bfloat16, ``ModelConfig()``): fused vs plain loss
-    and gradients from the same weights, each group within the mode's
-    bound or twice the plain path's movement under the PERTURB probe,
-    bit-identical repeat gradients, TRAIN_STEPS fused steps with exact
-    launch counts and a falling loss, step times and peak memory of both
-    paths, and a profile of one fused step."""
-    from misonet_tpu_torch.config import OptimizerConfig, StftConfig
+def check_gradients(phase, mode, fused, plain, mix, ref, shape, body=BODY):
+    """Fused vs plain loss and gradients of one uPIT step from the same
+    weights (``mode``'s bound, or twice the plain path's movement under
+    the PERTURB probe: each group's relative L2, and in float32 each
+    tensor's max-abs), and bit-identical repeat gradients of the fused
+    path.  Leaves cuDNN deterministic."""
     from misonet_tpu_torch.losses import loss_upit
-    from misonet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
-    from misonet_tpu_torch.ops.stft import stft_scaled
-    from misonet_tpu_torch.train import (
-        create_train_state, make_optimizer, make_separate_wave_train_step)
 
-    phase = "train" if mode == "float32" else "bf16-train"
     bound = TRAIN_BOUND if mode == "float32" else BF16_TRAIN_BOUND
-    bwd = "stencil_bwd" if mode == "float32" else "stencil_bwd_bf16"
-    stft_cfg = StftConfig()
-    batch = train_batch()
-    fused = seeded_model(cfg, device).train()
-    plain = seeded_model(dataclasses.replace(cfg, flat_dense=False),
-                         device).train()
-
-    mix = stft_scaled(batch[0].transpose(1, 2), stft_cfg)
-    ref = stft_scaled(batch[1], stft_cfg)
+    device = mix.device
 
     def loss_and_grads(model, x):
         model.zero_grad(set_to_none=True)
@@ -1059,7 +1068,7 @@ def phase_train(cfg, device, records, mode="float32"):
     groups = {}
     sq = {}   # squared norms per group: fused - plain, probe - plain, plain
     for k in grads_p:
-        grp = "body" if BODY.match(k) else "plain_modules"
+        grp = "body" if body.match(k) else "plain_modules"
         e = groups.setdefault(grp, {"tensors": 0, "within_bound": 0,
                                     "max_err": 0.0, "max_sensitivity": 0.0,
                                     "worst": None})
@@ -1081,7 +1090,7 @@ def phase_train(cfg, device, records, mode="float32"):
     loss_sens = abs(loss_q - loss_p) / abs(loss_p)
     del again, grads_f, grads_p, grads_q
     print(json.dumps({"phase": phase, "check": "fused vs plain, step 1",
-                      "precision": mode, "shape": [TRAIN_B, 6, T, 129],
+                      "precision": mode, "shape": shape,
                       "loss_fused": loss_f, "loss_plain": loss_p,
                       "loss_rel_err": loss_err,
                       "loss_sensitivity": loss_sens, "bound": bound,
@@ -1107,6 +1116,34 @@ def phase_train(cfg, device, records, mode="float32"):
                  f"{e['max_sensitivity']}")
     if not identical:
         fail(f"{phase}: a second backward gave other fused gradients")
+
+
+def phase_train(cfg, device, records, mode="float32"):
+    """The full-width wave train step at ``mode``'s precision (phase 7:
+    float32, phase 18: bfloat16, ``ModelConfig()``): fused vs plain loss
+    and gradients from the same weights, each group within the mode's
+    bound or twice the plain path's movement under the PERTURB probe,
+    bit-identical repeat gradients, TRAIN_STEPS fused steps with exact
+    launch counts and a falling loss, step times and peak memory of both
+    paths, and a profile of one fused step."""
+    from misonet_tpu_torch.config import OptimizerConfig, StftConfig
+    from misonet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from misonet_tpu_torch.ops.stft import stft_scaled
+    from misonet_tpu_torch.train import (
+        create_train_state, make_optimizer, make_separate_wave_train_step)
+
+    phase = "train" if mode == "float32" else "bf16-train"
+    bwd = "stencil_bwd" if mode == "float32" else "stencil_bwd_bf16"
+    stft_cfg = StftConfig()
+    batch = train_batch()
+    fused = seeded_model(cfg, device).train()
+    plain = seeded_model(dataclasses.replace(cfg, flat_dense=False),
+                         device).train()
+
+    mix = stft_scaled(batch[0].transpose(1, 2), stft_cfg)
+    ref = stft_scaled(batch[1], stft_cfg)
+    check_gradients(phase, mode, fused, plain, mix, ref, [TRAIN_B, 6, T, 129])
+    del mix, ref
 
     # the main path: TRAIN_STEPS fused wave train steps
     opt_cfg = OptimizerConfig(lr=1e-3)
@@ -1506,6 +1543,318 @@ def phase_cli(device_line):
         if wavs != {"test_miso3": 12, "test_css": 4}:
             fail(f"cli: wrote {wavs} wavs")
 
+# (name, source widths, N): the layers of one encoder block (enc0, F = 127)
+# and one decoder block (dec6: its input is the decoder tensor and the skip,
+# two sources of 24) of ModelConfig(), each layer over all its raw sources
+DENSE_LAYER_F = 127
+DENSE_LAYER_CASES = [
+    *((f"enc0 layer {s}", (24,) * s, 24) for s in range(1, 6)),
+    *((f"dec6 layer {s}", (24,) * (s + 1), 48 if s == 5 else 24)
+      for s in range(1, 6)),
+]
+# (name, fuse_elu, want_stats) of the two switch cases, on dec6's layer 2
+DENSE_LAYER_SWITCHES = [("dec6 layer 2 no ELU", False, True),
+                        ("dec6 layer 2 no statistics", True, False)]
+
+
+def phase_dense_layer(records):
+    """Kernel 2.6 at ModelConfig()'s DenseBlock shapes, B = 6, T = 501, in
+    float32 and bf16.  No serving or training path calls it, so its main
+    path is its entry point: every case once with the counts reset, then
+    each case against dense_layer_plain (BOUND; bf16 outputs BF16_BOUND)
+    with the times of kernel, plain version and cuDNN's conv of the
+    normalized concat (library_ms) and the bound from MACs = B T F N 9 C."""
+    import torch.nn.functional as F
+
+    from misonet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from misonet_tpu_torch.ops.kernels.dense_layer import (
+        dense_layer, dense_layer_plain)
+
+    rng = np.random.default_rng(SEED + 20)
+    f = DENSE_LAYER_F
+    cases = []
+    for dtype, peak in ((torch.float32, PEAK_FLOPS),
+                        (torch.bfloat16, PEAK_BF16)):
+        for name, widths, n, *switch in [
+                *((nm, w, n, True, True) for nm, w, n in DENSE_LAYER_CASES),
+                *((nm, (24,) * 3, 24, elu, st)
+                  for nm, elu, st in DENSE_LAYER_SWITCHES)]:
+            c = sum(widths)
+            args = ([rand(rng, (B, w, T, f)).to(dtype) for w in widths],
+                    rand(rng, (n, c, 3, 3), scale=1.0 / np.sqrt(9 * c)).to(
+                        dtype),
+                    rand(rng, (n,), scale=0.1),
+                    rand(rng, (B, c), 0.5, 1.5),
+                    rand(rng, (B, c), -0.5, 0.5))
+            cases.append((name, dtype, peak, args, n, c, switch))
+
+    reset_launch_counts()
+    for _, _, _, args, _, _, (elu, stats) in cases:
+        dense_layer(*args, fuse_elu=elu, want_stats=stats)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    per_mode = len(cases) // 2
+    want = expect(dense_layer=per_mode, dense_layer_bf16=per_mode)
+    print(json.dumps({"phase": "dense-layer", "launches": counts}),
+          flush=True)
+    if counts != want:
+        fail(f"dense-layer launched {counts}, expected {want}")
+    for name in ("dense_layer", "dense_layer_bf16"):
+        records[name]["launches"] = counts[name]
+
+    for name, dtype, peak, args, n, c, (elu, stats) in cases:
+        xn = normalized(args[0], args[3], args[4]).to(dtype)
+        bf16 = dtype == torch.bfloat16
+        check_kernel(
+            f"dense_layer {'bf16 ' if bf16 else ''}{name}",
+            lambda *a: dense_layer(*a, fuse_elu=elu, want_stats=stats),
+            lambda *a: dense_layer_plain(*a, fuse_elu=elu, want_stats=stats),
+            args, records["dense_layer_bf16" if bf16 else "dense_layer"],
+            2 * B * T * f * n * 9 * c,
+            lambda: F.conv2d(xn, args[1], args[2].to(dtype), padding=1),
+            phase="dense-layer", peak=peak)
+        del xn
+
+
+REVERB_CONFIG = "configs/reverb_2mix.yml"
+# the fused body of the 8-level plan: enc0-4 and their mirrors dec3-7
+REVERB_BODY = re.compile(
+    r"^(enc[0-4]|enc[0-4]_dense|dec[3-7]|dec[3-7]_dense)\.")
+
+
+def reverb_batch(n, fs, mics, seconds=4.0):
+    """``n`` seeded synthetic ``mics``-mic mixtures at ``fs`` and their 2
+    references on the card."""
+    rng = np.random.default_rng(SEED + 21)
+    reqs = [synth_request(rng, seconds, fs, mics) for _ in range(n)]
+    return (torch.from_numpy(np.stack([m for m, _ in reqs])).cuda(),
+            torch.from_numpy(np.stack([r for _, r in reqs])).cuda())
+
+
+def phase_reverb(device):
+    """The REVERB 2-mix plan (configs/reverb_2mix.yml: 8 levels, F = 257,
+    8 mics, 384-channel TCN, bf16) at full width on the card.  Forward at
+    the decode batch of one 4 s chunk (8 circular shifts): fused vs plain
+    within phase 12's bound, exactly 50 dense_stack_bf16 and 10
+    stencil_bf16 launches.  One bf16 train step at the YAML's batch of 16
+    (or the largest power of two whose plain step fits the card): fused vs
+    plain gradients with phase 18's gate, exactly 60 stencil_bwd_bf16
+    launches with the forward's 50 and 10, step times and peak memory."""
+    from misonet_tpu_torch.config import load_yaml
+    from misonet_tpu_torch.losses import loss_upit
+    from misonet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from misonet_tpu_torch.ops.stft import stft_scaled
+    from misonet_tpu_torch.train import (
+        create_train_state, make_optimizer, make_separate_wave_train_step)
+
+    cfg = load_yaml(REVERB_CONFIG)
+    mcfg, stft_cfg, mics = cfg.miso1, cfg.stft, cfg.dataset.num_ch
+    if (mcfg.num_bottleneck, stft_cfg.num_bins, mics) != (8, 257, 8):
+        fail(f"reverb: unexpected plan {mcfg}")
+    plain_cfg = dataclasses.replace(mcfg, flat_dense=False)
+    model = seeded_model(mcfg, device, num_mics=mics)
+    wave, _ = reverb_batch(1, stft_cfg.fs, mics)
+    chunk = stft_scaled(wave.transpose(1, 2), stft_cfg)     # [1, 8, T, 257]
+    x = torch.cat([torch.roll(chunk, -m, dims=1) for m in range(mics)])
+    with torch.inference_mode():
+        reset_launch_counts()
+        fused = model(x)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        t_fused = cuda_ms(lambda: model(x), reps=3)
+        model.cfg = plain_cfg
+        plain = model(x)
+        t_plain = cuda_ms(lambda: model(x), reps=3)
+        sens = norm_err(torch.view_as_real(model(moved(x))),
+                        torch.view_as_real(plain))[1]
+        model.cfg = mcfg
+    err, rel = norm_err(torch.view_as_real(fused), torch.view_as_real(plain))
+    bound = max(BF16_FORWARD_BOUND, 2 * sens)
+    print(json.dumps({"phase": "reverb", "check": "forward",
+                      "shape": list(x.shape), "precision": mcfg.compute_dtype,
+                      "params": sum(p.numel() for p in model.parameters()),
+                      "launches_per_forward": counts, "max_abs_err": err,
+                      "max_norm_err": rel, "bound": bound,
+                      "plain_sensitivity": sens, **agreement(fused, plain),
+                      "fused_ms": t_fused, "plain_ms": t_plain}), flush=True)
+    if counts != expect("bfloat16", 50, 10):
+        fail(f"reverb forward launched {counts}")
+    if (fused.shape != (mics, 2, x.shape[2], 257)
+            or not torch.isfinite(torch.view_as_real(fused)).all()):
+        fail(f"reverb forward output {tuple(fused.shape)} not finite/expected")
+    if not rel <= bound:
+        fail(f"reverb forward: fused vs plain {rel} above {bound}")
+    del model, fused, plain
+
+    # one train step: the YAML's batch if the plain path's step fits
+    fused = seeded_model(mcfg, device, num_mics=mics).train()
+    plain = seeded_model(plain_cfg, device, num_mics=mics).train()
+    batch_size = cfg.trainer_sp.batch_size
+    while True:
+        batch = reverb_batch(batch_size, stft_cfg.fs, mics)
+        mix = stft_scaled(batch[0].transpose(1, 2), stft_cfg)
+        ref = stft_scaled(batch[1], stft_cfg)
+        try:
+            plain.zero_grad(set_to_none=True)
+            loss_upit(plain(mix), ref).backward()
+            break
+        except torch.cuda.OutOfMemoryError:
+            plain.zero_grad(set_to_none=True)
+            del batch, mix, ref
+            torch.cuda.empty_cache()
+            batch_size //= 2
+            if batch_size < 1:
+                fail("reverb: no batch of the plain step fits the card")
+    print(json.dumps({"phase": "reverb", "train_batch": batch_size,
+                      "yaml_batch": cfg.trainer_sp.batch_size}), flush=True)
+    check_gradients("reverb", "bfloat16", fused, plain, mix, ref,
+                    list(mix.shape), REVERB_BODY)
+    del mix, ref
+    peaks, times, launches = {}, {}, None
+    for name, model in (("fused", fused), ("plain", plain)):
+        opt = make_optimizer(cfg.optimizer, model.parameters())
+        step = make_separate_wave_train_step(
+            model, opt, stft_cfg, ref_ch=cfg.dataset.ref_ch)
+        state = create_train_state(model, opt)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        times[name], metrics = step_ms(step, state, batch, 2)
+        counts = launch_counts()
+        peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+        if name == "fused":
+            launches = counts
+            want = expect("bfloat16", 100, 20, stencil_bwd_bf16=120)
+            if counts != want or not all(np.isfinite(m["loss"])
+                                         for m in metrics):
+                fail(f"reverb: two train steps launched {counts} (expected "
+                     f"{want}), losses {metrics}")
+    print(json.dumps({"phase": "reverb", "check": "train step",
+                      "batch": batch_size, "launches_two_steps": launches,
+                      "step_ms": times, "peak_gib": peaks}), flush=True)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_parallel(device):
+    """parallel/ over NCCL at world size 1 (one card shows the mechanism,
+    not scaling): the data-parallel bf16 MISO1 wave train step at [8, 6,
+    501, 129] against the same step without a mesh (gradients and updated
+    parameters bit-identical, 50 / 10 / 60 launches each), its step time
+    beside the plain one; chunked_scm over the group against the
+    unsharded SCM; the full-width float32 MISO1 with the sequence-parallel
+    TCN against the local model (BOUND); dryrun_multichip(1)."""
+    import torch.distributed as dist
+
+    from misonet_tpu_torch.beamforming.scm import chunked_scm
+    from misonet_tpu_torch.config import ModelConfig, OptimizerConfig, StftConfig
+    from misonet_tpu_torch.dryrun import dryrun_multichip
+    from misonet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from misonet_tpu_torch.parallel import (
+        distributed, make_mesh, replicate, shard_batch)
+    from misonet_tpu_torch.train import (
+        create_train_state, make_optimizer, make_separate_wave_train_step)
+
+    distributed.initialize(f"tcp://127.0.0.1:{free_port()}", 1, 0,
+                           device="cuda", force=True)
+    try:
+        mesh = make_mesh()
+        print(json.dumps({"phase": "parallel", "backend":
+                          dist.get_backend(), "world_size": mesh.size,
+                          "note": "one card runs the collectives (NCCL) at "
+                          "world size 1: it shows the mechanism, not "
+                          "scaling"}), flush=True)
+        cfg, stft_cfg = ModelConfig(), StftConfig()
+        batch = train_batch()
+        steps, states, models = {}, {}, {}
+        for name, m in (("single", None), ("dp", mesh)):
+            model = seeded_model(cfg, device).train()
+            if m is not None:
+                replicate(model, m)
+            opt = make_optimizer(OptimizerConfig(lr=1e-3), model.parameters())
+            states[name] = create_train_state(model, opt)
+            steps[name] = make_separate_wave_train_step(model, opt, stft_cfg,
+                                                        mesh=m)
+            models[name] = model
+        reset_launch_counts()
+        _, m_single = step_ms(steps["single"], states["single"], batch, 1)
+        counts_single = launch_counts()
+        reset_launch_counts()
+        _, m_dp = step_ms(steps["dp"], states["dp"], shard_batch(batch, mesh),
+                          1)
+        counts_dp = launch_counts()
+        want = expect("bfloat16", 50, 10, stencil_bwd_bf16=60)
+        pairs = list(zip(models["single"].named_parameters(),
+                         models["dp"].parameters()))
+        same_grads = all(torch.equal(p.grad, q.grad) for (_, p), q in pairs)
+        same_params = all(torch.equal(p, q) for (_, p), q in pairs)
+        t_single, _ = step_ms(steps["single"], states["single"], batch, 3)
+        t_dp, _ = step_ms(steps["dp"], states["dp"],
+                          shard_batch(batch, mesh), 3)
+        print(json.dumps({"phase": "parallel", "check": "dp train step",
+                          "shape": [TRAIN_B, 6, T, 129], "precision":
+                          cfg.compute_dtype, "launches": counts_dp,
+                          "grads_bit_identical": same_grads,
+                          "params_bit_identical": same_params,
+                          "loss": [m_single[0]["loss"], m_dp[0]["loss"]],
+                          "step_ms_dp": t_dp, "step_ms_single": t_single}),
+              flush=True)
+        if counts_dp != want or counts_single != want:
+            fail(f"parallel: the steps launched {counts_dp} / "
+                 f"{counts_single}, expected {want}")
+        if not (same_grads and same_params
+                and m_single[0]["loss"] == m_dp[0]["loss"]):
+            fail("parallel: the data-parallel step differs from the "
+                 "step without a mesh")
+        del models, states, steps, batch
+
+        rng = np.random.default_rng(SEED + 22)
+        blocks = torch.complex(rand(rng, (4, 6, T, 129)),
+                               rand(rng, (4, 6, T, 129)))
+        full = chunked_scm(blocks)
+        sharded = chunked_scm(shard_batch(blocks, mesh), mesh)
+        scm_err = norm_err(torch.view_as_real(sharded),
+                           torch.view_as_real(full))[1]
+        print(json.dumps({"phase": "parallel", "check": "chunked_scm",
+                          "max_norm_err": scm_err,
+                          "identical": torch.equal(sharded, full)}),
+              flush=True)
+        if not scm_err <= BOUND:
+            fail(f"parallel: collective SCM differs by {scm_err}")
+
+        cfg32 = ModelConfig(compute_dtype="float32")
+        local = seeded_model(cfg32, device)
+        sp = seeded_model(dataclasses.replace(cfg32, sequence_parallel=True),
+                          device, sp_mesh=make_mesh(axis="seq"))
+        sp.load_state_dict(local.state_dict())
+        x = forward_input()
+        with torch.inference_mode():
+            want_out = local(x)
+            reset_launch_counts()
+            got = sp(x)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        sp_err = norm_err(torch.view_as_real(got),
+                          torch.view_as_real(want_out))[1]
+        print(json.dumps({"phase": "parallel", "check": "sequence-parallel "
+                          "TCN, full-width MISO1", "shape": list(x.shape),
+                          "max_norm_err": sp_err, "launches": counts}),
+              flush=True)
+        if counts != expect("float32", 50, 10) or not sp_err <= BOUND:
+            fail(f"parallel: SP MISO1 differs by {sp_err}, launched {counts}")
+        del local, sp, x, got, want_out
+
+        loss = dryrun_multichip(1, device=device)
+        if not np.isfinite(loss):
+            fail(f"parallel: dryrun_multichip(1) loss {loss}")
+    finally:
+        dist.destroy_process_group()
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1560,6 +1909,10 @@ def main() -> int:
              None),
             ("stencil_bwd_bf16", "misonet_tpu/ops/pallas/stencil_bwd.py:300",
              "stencil_bwd"),
+            ("dense_layer", "misonet_tpu/ops/pallas/dense_flat.py:240",
+             "dense_stack"),
+            ("dense_layer_bf16", "misonet_tpu/ops/pallas/dense_flat.py:240",
+             "dense_stack"),
         ]
     }
     seconds = {"build": time.perf_counter() - t0}
@@ -1627,13 +1980,23 @@ def main() -> int:
 
     # 19. the port's CLI end to end
     timed("cli", phase_cli, smi)
+
+    # 20. kernel 2.6, dense_layer, through its own entry point
+    timed("dense-layer", phase_dense_layer, records)
+
+    # 21. the REVERB plan: 8 levels, F = 257, 8 mics
+    timed("reverb", phase_reverb, device)
+
+    # 22. parallel/ over NCCL at world size 1
+    timed("parallel", phase_parallel, device)
     print(json.dumps({"phase": "timing", "seconds": seconds}), flush=True)
 
     # every time is the sum over that kernel's main-path cases in phase 3,
-    # 6, 8, 11 or 17; launches are those of the train path's run (phase 7,
-    # and phase 18 for stencil_bwd_bf16), of the cascade's requests (phase
-    # 9) for hermitian_solve, and of the bf16 and int8 forwards (phases
-    # 12-13) for their forward modes
+    # 6, 8, 11, 17 or 20; launches are those of the train path's run (phase
+    # 7, and phase 18 for stencil_bwd_bf16), of the cascade's requests
+    # (phase 9) for hermitian_solve, of the bf16 and int8 forwards (phases
+    # 12-13) for their forward modes, and of phase 20's driven run for
+    # dense_layer
     for r in records.values():
         r["bound_by"] = ("operations" if r.pop("ops_ms") >= r.pop("bytes_ms")
                          else "bytes")

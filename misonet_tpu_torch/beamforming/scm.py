@@ -2,9 +2,8 @@
 separation (misonet_tpu/beamforming/scm.py).
 
 A running SCM is kept as (sum, frame count): per-block partial sums over
-disjoint frame sets combine exactly.  The JAX package can also reduce the
-partial sums across devices (``chunked_scm(axis_name=...)``); that waits
-for the port of ``parallel/`` and raises here.
+disjoint frame sets combine exactly, also across the ranks of a mesh
+(``chunked_scm(blocks, mesh)``, the JAX package's ``axis_name``).
 """
 
 from __future__ import annotations
@@ -12,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from misonet_tpu_torch.beamforming.mvdr import frame_outer_sum, hermitize
+from misonet_tpu_torch.parallel.mesh import sum_over
 
 
 def scm_partial(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -37,16 +37,20 @@ def scm_finalize(acc: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
     return hermitize(s / t)
 
 
-def chunked_scm(blocks: torch.Tensor,
-                axis_name: str | None = None) -> torch.Tensor:
+def chunked_scm(blocks: torch.Tensor, mesh=None) -> torch.Tensor:
     """SCM over a stack of blocks [N, C, T, F] (concatenated in time),
-    equal to the SCM of the concatenation.  ``axis_name`` (a reduction of
-    the partial sums across devices) is not ported yet and raises."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "chunked_scm(axis_name=...): the collective SCM reduction needs "
-            "parallel/, which is not ported yet (ROADMAP)"
-        )
+    equal to the SCM of the concatenation.  With ``mesh`` (a
+    ``parallel.Mesh``; the JAX package names it by ``axis_name``) each rank
+    holds its own blocks, and the partial sums and frame counts are summed
+    over the mesh, so every rank gets the SCM of all the ranks' blocks."""
     n, c, t, f = blocks.shape
-    s = frame_outer_sum(blocks.transpose(0, 1).reshape(c, n * t, f))
-    return hermitize(s / (n * t))
+    x = blocks.transpose(0, 1).reshape(c, n * t, f)
+    frames = n * t
+    if mesh is None:
+        s = frame_outer_sum(x)
+    else:   # the partial sums meet in complex128
+        s = frame_outer_sum(x.to(torch.complex128))
+        sum_over(torch.view_as_real(s), mesh)
+        s = s.to(blocks.dtype)
+        frames *= mesh.size   # shards of one shape, as under shard_map
+    return hermitize(s / frames)

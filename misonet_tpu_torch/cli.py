@@ -10,6 +10,8 @@ Modes (reference run.py:278-292):
 
 Usage:
   python -m misonet_tpu_torch -c configs/smswsj.yml -m Train -t MISO1 -n logs/run1
+  torchrun --nproc_per_node=N -m misonet_tpu_torch -c ... -m Train ...
+                                                   (data parallel, N cards)
   python -m misonet_tpu_torch -c configs/smswsj.yml -m Test -t MISO3 -n logs/eval
   python -m misonet_tpu_torch ... --device cpu     (the plain path, no card)
 
@@ -20,6 +22,12 @@ by default, as in the JAX package).  Checkpoints are the port's own
 and testing load (``trainer_en.MISO1_path``) and the enhancement net's
 ``best`` must come from the port's trainers, or from JAX params moved in
 with ``utils/weights.py::load_jax_params``.
+
+Training under ``torchrun`` is data parallel (run.py's mesh, run.py:220-227):
+one process per card over NCCL (gloo with ``--device cpu``), a mesh of
+``mesh.num_devices`` ranks (0: all; the largest divisor of the batch not
+above it, which must be every rank), each rank reading the same global
+batches and keeping its own rows; rank 0 alone logs and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -214,32 +222,57 @@ def load_miso1(cfg: Config, device: str):
     return load_model(ckpt.parent, ckpt.name, _model(cfg, "MISO1", device))
 
 
+def _train_mesh(cfg: Config, batch_size: int, device: str):
+    """The data-parallel mesh of a run under torchrun, or None for one
+    process (run.py:220-227)."""
+    import torch.distributed as dist
+
+    from misonet_tpu_torch.parallel import distributed, make_mesh_for_batch
+
+    if not distributed.initialize(device=device):
+        return None
+    mesh = make_mesh_for_batch(batch_size, cfg.mesh.num_devices)
+    if mesh.size != dist.get_world_size():
+        raise ValueError(
+            f"a batch of {batch_size} over mesh.num_devices="
+            f"{cfg.mesh.num_devices} makes a mesh of {mesh.size} ranks: "
+            f"launch {mesh.size} processes, not {dist.get_world_size()}")
+    return mesh
+
+
 def train(cfg: Config, args) -> None:
+    import torch.distributed as dist
+
     from misonet_tpu_torch.train.trainer import EnhanceTrainer, SeparationTrainer
     from misonet_tpu_torch.utils.writer import MetricWriter
 
-    writer = MetricWriter(args.logdir, cfg.stft)
+    tr_cfg = cfg.trainer_sp if args.target == "MISO1" else cfg.trainer_en
+    mesh = _train_mesh(cfg, tr_cfg.batch_size, args.device)
+    writer = (MetricWriter(args.logdir, cfg.stft)
+              if mesh is None or mesh.index == 0 else None)
     try:
         if args.target == "MISO1":
-            tr_cfg = cfg.trainer_sp
             train_data, val_data = _loaders(cfg, tr_cfg)
             trainer = SeparationTrainer(
                 _model(cfg, "MISO1", args.device), tr_cfg, cfg.optimizer,
-                cfg.stft, cfg.dataset, train_data, val_data, writer=writer)
+                cfg.stft, cfg.dataset, train_data, val_data, mesh=mesh,
+                writer=writer)
         elif args.target in ("MISO2", "MISO3"):
-            tr_cfg = cfg.trainer_en
             train_data, val_data = _loaders(cfg, tr_cfg)
             trainer = EnhanceTrainer(
                 _model(cfg, args.target, args.device),
                 load_miso1(cfg, args.device), tr_cfg, cfg.optimizer,
                 cfg.stft, cfg.dataset, train_data, val_data,
-                joint=args.target == "MISO2", writer=writer)
+                joint=args.target == "MISO2", mesh=mesh, writer=writer)
         else:
             raise ValueError(f"-m Train takes -t MISO1, MISO2 or MISO3, not "
                              f"{args.target}")
         trainer.train()
     finally:
-        writer.close()
+        if writer is not None:
+            writer.close()
+        if mesh is not None:
+            dist.destroy_process_group()
 
 
 def _pit_np(est, refs) -> float:

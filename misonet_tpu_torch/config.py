@@ -181,12 +181,9 @@ class Config:
     mesh: MeshConfig = MeshConfig()
 
     def __post_init__(self):
-        if self.mesh.num_devices > 1:
-            raise NotImplementedError(
-                f"mesh.num_devices={self.mesh.num_devices}: the port runs on "
-                "one card; the data-parallel mesh (misonet_tpu/parallel/) is "
-                "not ported yet (ROADMAP section 0)"
-            )
+        if self.mesh.num_devices < 0:
+            raise ValueError(f"mesh.num_devices={self.mesh.num_devices}: a "
+                             "device count is 0 (all) or more")
 
 
 def _model_from_yaml(d: dict[str, Any]) -> ModelConfig:

@@ -43,6 +43,16 @@
 // accumulator has to leave the kernel between calls (layer s+1 needs layer
 // s's global InstanceNorm statistics), so acc_in/acc_out round-trip device
 // memory.  Statistics: two passes, see conv_common.cuh.
+//
+// dense_layer (misonet_dense_layer*): the same kernel as one whole
+// DenseBlock layer, replacing misonet_tpu/ops/pallas/dense_flat.py::
+// dense_layer_flat: acc_in = NULL, n_fin = N, up to MAX_SOURCES raw sources
+// (a DenseBlock's fifth layer reads the block input and four earlier
+// outputs; the concat stays logical, each staged channel chunk is read
+// from its own source), and two switches: fuse_elu = 0 stores z + bias
+// (and takes the statistics of that pre-ELU value), want_stats = 0 skips
+// the statistics passes and writes no sums.  Bound as dense_stack: float32
+// FMA throughput; a layer's N = 24 fills 24 of a block's 32 channel slots.
 
 #include "conv_common.cuh"
 
@@ -54,6 +64,16 @@ constexpr int LANES = POS_TILE / PT;   // position lanes per channel half
 constexpr int THREADS = 2 * LANES;     // two 16-channel halves
 constexpr int CK = 8;                  // source channels staged per round
 constexpr int MIN_BLOCKS = 4;          // per SM: caps registers at 64
+constexpr int MAX_SOURCES = 8;         // raw sources of one call
+
+// The raw sources of a call, passed by value: source s is x[s], c[s]
+// channels [B, c[s], T, F]; their channel concatenation is the conv input.
+template <typename T>
+struct Sources {
+  const T* x[MAX_SOURCES];
+  int c[MAX_SOURCES];
+  int n;
+};
 
 // Floats staged per source channel: the rows a tile of POS_TILE flattened
 // positions spans, plus one row above and one below.
@@ -61,8 +81,7 @@ inline int stage_floats(int F) { return ((POS_TILE - 1) / F + 4) * F; }
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-dense_stack_kernel(const T* __restrict__ x0, int c0,
-                   const T* __restrict__ x1, int c1,
+dense_stack_kernel(const Sources<T> src, int C,
                    const float* __restrict__ scale,
                    const float* __restrict__ mean,
                    const T* __restrict__ w,
@@ -71,7 +90,8 @@ dense_stack_kernel(const T* __restrict__ x0, int c0,
                    T* __restrict__ y,
                    T* __restrict__ acc_out,
                    float* __restrict__ part,
-                   int Tn, int F, int N, int n_fin, int xs_ch) {
+                   int Tn, int F, int N, int n_fin, int xs_ch,
+                   bool fuse_elu, bool want_stats) {
   extern __shared__ __align__(16) float smem[];
   float (*ws)[9][WS_ROW] = reinterpret_cast<float (*)[9][WS_ROW]>(smem);
   float* xs = smem + CK * 9 * WS_ROW;  // CK staged channels of xs_ch floats
@@ -81,7 +101,6 @@ dense_stack_kernel(const T* __restrict__ x0, int c0,
   const int n0 = blockIdx.y * NB;
   const int b = blockIdx.z;
   const int B = gridDim.z;
-  const int C = c0 + c1;
   const int TF = Tn * F;
 
   // staged run: rows r0-1 .. r1+1 of the plane, flat from index g0
@@ -110,10 +129,10 @@ dense_stack_kernel(const T* __restrict__ x0, int c0,
 #pragma unroll
     for (int j = 0; j < PT; ++j) acc[i][j] = 0.f;
 
-  for (int s = 0; s < 2; ++s) {
-    const T* xsrc = s ? x1 : x0;
-    const int cs = s ? c1 : c0;
-    const int coff = s ? c0 : 0;
+  int coff = 0;  // first channel of source s in the concatenation
+  for (int s = 0; s < src.n; coff += src.c[s], ++s) {
+    const T* xsrc = src.x[s];
+    const int cs = src.c[s];
     for (int cb = 0; cb < cs; cb += CK) {
       const int ck = min(CK, cs - cb);
       __syncthreads();  // the previous chunk is consumed
@@ -171,7 +190,7 @@ dense_stack_kernel(const T* __restrict__ x0, int c0,
       float z = acc[i][j];
       if (acc_in) z += ldg_f32(acc_in + ((size_t)b * N + n) * TF + pos[j]);
       if (n < n_fin) {
-        const float v = elu(z + bias[n]);
+        const float v = fuse_elu ? elu(z + bias[n]) : z + bias[n];
         store(y + ((size_t)b * n_fin + n) * TF + pos[j], v);
         su[i] += v;
         sq[i] += v * v;
@@ -181,21 +200,25 @@ dense_stack_kernel(const T* __restrict__ x0, int c0,
       }
     }
   }
-  if (n0 < n_fin)  // block-uniform
+  if (want_stats && n0 < n_fin)  // block-uniform
     block_stats<THREADS>(su, sq, part, b, B, n0, n_fin, tile, gridDim.x);
 }
 
-// Launch both passes for storage type T (see the C entry points below).
+// Launch both passes for storage type T (see the C entry points below);
+// without want_stats only the conv pass.
 template <typename T>
-int launch_dense_stack(const T* x0, int c0, const T* x1, int c1,
-                       const float* scale, const float* mean, const T* w,
-                       const float* bias, const T* acc_in, T* y, T* acc_out,
-                       float* part, float* sums, float* sqs, int B, int Tn,
-                       int F, int N, int n_fin, void* stream) {
+int launch_dense_stack(const Sources<T>& src, const float* scale,
+                       const float* mean, const T* w, const float* bias,
+                       const T* acc_in, T* y, T* acc_out, float* part,
+                       float* sums, float* sqs, int B, int Tn, int F, int N,
+                       int n_fin, bool fuse_elu, bool want_stats,
+                       void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int ntiles = (Tn * F + POS_TILE - 1) / POS_TILE;
   const dim3 grid(ntiles, (N + NB - 1) / NB, B);
   const int xs_ch = stage_floats(F);
+  int C = 0;
+  for (int s = 0; s < src.n; ++s) C += src.c[s];
   // weights, staged channels, and slack after the last channel: the masked
   // edge taps of a tile's first and last position read one float outside
   // their channel's run (into the weights before it or this slack)
@@ -205,11 +228,41 @@ int launch_dense_stack(const T* x0, int c0, const T* x1, int c1,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   dense_stack_kernel<T><<<grid, THREADS, smem, st>>>(
-      x0, c0, x1, c1, scale, mean, w, bias, acc_in, y, acc_out, part, Tn, F,
-      N, n_fin, xs_ch);
+      src, C, scale, mean, w, bias, acc_in, y, acc_out, part, Tn, F, N,
+      n_fin, xs_ch, fuse_elu, want_stats);
   e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  if (e != cudaSuccess || !want_stats) return (int)e;
   return (int)launch_reduce_stats(part, sums, sqs, B * n_fin, ntiles, st);
+}
+
+template <typename T>
+Sources<T> two_sources(const T* x0, int c0, const T* x1, int c1) {
+  Sources<T> src{};
+  src.x[0] = x0;
+  src.c[0] = c0;
+  src.x[1] = x1;
+  src.c[1] = c1;
+  src.n = x1 ? 2 : 1;
+  return src;
+}
+
+// Returns cudaErrorInvalidValue for a source count outside [1, MAX_SOURCES].
+template <typename T>
+int launch_dense_layer(const T* const* xs, const int* widths, int n_src,
+                       const float* scale, const float* mean, const T* w,
+                       const float* bias, T* y, float* part, float* sums,
+                       float* sqs, int B, int Tn, int F, int N, int fuse_elu,
+                       int want_stats, void* stream) {
+  if (n_src < 1 || n_src > MAX_SOURCES) return (int)cudaErrorInvalidValue;
+  Sources<T> src{};
+  for (int s = 0; s < n_src; ++s) {
+    src.x[s] = xs[s];
+    src.c[s] = widths[s];
+  }
+  src.n = n_src;
+  return launch_dense_stack(src, scale, mean, w, bias, (const T*)nullptr, y,
+                            (T*)nullptr, part, sums, sqs, B, Tn, F, N, N,
+                            fuse_elu != 0, want_stats != 0, stream);
 }
 
 }  // namespace
@@ -232,9 +285,10 @@ extern "C" int misonet_dense_stack(const float* x0, int c0, const float* x1,
                                    float* y, float* acc_out, float* part,
                                    float* sums, float* sqs, int B, int T,
                                    int F, int N, int n_fin, void* stream) {
-  return misonet::launch_dense_stack(x0, c0, x1, c1, scale, mean, w, bias,
-                                     acc_in, y, acc_out, part, sums, sqs, B,
-                                     T, F, N, n_fin, stream);
+  return misonet::launch_dense_stack(misonet::two_sources(x0, c0, x1, c1),
+                                     scale, mean, w, bias, acc_in, y,
+                                     acc_out, part, sums, sqs, B, T, F, N,
+                                     n_fin, true, true, stream);
 }
 
 extern "C" int misonet_dense_stack_bf16(
@@ -243,9 +297,40 @@ extern "C" int misonet_dense_stack_bf16(
     const float* bias, const __nv_bfloat16* acc_in, __nv_bfloat16* y,
     __nv_bfloat16* acc_out, float* part, float* sums, float* sqs, int B,
     int T, int F, int N, int n_fin, void* stream) {
-  return misonet::launch_dense_stack(x0, c0, x1, c1, scale, mean, w, bias,
-                                     acc_in, y, acc_out, part, sums, sqs, B,
-                                     T, F, N, n_fin, stream);
+  return misonet::launch_dense_stack(misonet::two_sources(x0, c0, x1, c1),
+                                     scale, mean, w, bias, acc_in, y,
+                                     acc_out, part, sums, sqs, B, T, F, N,
+                                     n_fin, true, true, stream);
+}
+
+// dense_layer: one whole DenseBlock layer over n_src (1..8) raw sources.
+// xs[s] [B, widths[s], T, F] and w [N, sum(widths), 3, 3] float32
+// (misonet_dense_layer) or bfloat16 (misonet_dense_layer_bf16), y [B, N,
+// T, F] of the same type; scale, mean [B, sum(widths)], bias [N] float32.
+// With want_stats: part [2, B, N, ntiles] scratch and sums, sqs [B, N]
+// float32; without it the three may be NULL.  fuse_elu = 0 skips the ELU.
+// Returns cudaGetLastError() after the launches (0 on success).
+extern "C" int misonet_dense_layer(const float* const* xs, const int* widths,
+                                   int n_src, const float* scale,
+                                   const float* mean, const float* w,
+                                   const float* bias, float* y, float* part,
+                                   float* sums, float* sqs, int B, int T,
+                                   int F, int N, int fuse_elu,
+                                   int want_stats, void* stream) {
+  return misonet::launch_dense_layer(xs, widths, n_src, scale, mean, w, bias,
+                                     y, part, sums, sqs, B, T, F, N,
+                                     fuse_elu, want_stats, stream);
+}
+
+extern "C" int misonet_dense_layer_bf16(
+    const __nv_bfloat16* const* xs, const int* widths, int n_src,
+    const float* scale, const float* mean, const __nv_bfloat16* w,
+    const float* bias, __nv_bfloat16* y, float* part, float* sums,
+    float* sqs, int B, int T, int F, int N, int fuse_elu, int want_stats,
+    void* stream) {
+  return misonet::launch_dense_layer(xs, widths, n_src, scale, mean, w, bias,
+                                     y, part, sums, sqs, B, T, F, N,
+                                     fuse_elu, want_stats, stream);
 }
 
 // The tiling constant the wrapper needs to size the partials scratch.

@@ -1,5 +1,6 @@
 """Evaluation metrics (misonet_tpu/metrics.py): SI-SDR, its permutation-
-best mean over speakers, and an independent numpy oracle."""
+best mean over speakers, plain SDR, the PESQ hook, and an independent
+numpy oracle."""
 
 from __future__ import annotations
 
@@ -25,6 +26,13 @@ def si_sdr(estimate: torch.Tensor, reference: torch.Tensor) -> torch.Tensor:
     return 10.0 * torch.log10(ratio + EPS)
 
 
+def sdr(estimate: torch.Tensor, reference: torch.Tensor) -> torch.Tensor:
+    """Plain (scale-dependent) SDR in dB: [..., T] -> [...]."""
+    noise = estimate - reference
+    ratio = (reference**2).sum(dim=-1) / ((noise**2).sum(dim=-1) + EPS)
+    return 10.0 * torch.log10(ratio + EPS)
+
+
 def si_sdr_pit(estimates: torch.Tensor,
                references: torch.Tensor) -> torch.Tensor:
     """Permutation-optimal mean SI-SDR: [S, T] (or [B, S, T]) -> scalar
@@ -44,6 +52,19 @@ def si_sdr_pit(estimates: torch.Tensor,
     )  # [B, S!]
     out = scores.max(dim=1).values
     return out[0] if squeeze else out
+
+
+def pesq(estimate: np.ndarray, reference: np.ndarray, fs: int = 8000):
+    """PESQ (ITU-T P.862) hook: the ``pesq`` package's score (narrow band
+    up to 8 kHz, wide band above), or None where that package does not
+    import, so evaluation reports it opportunistically beside SI-SDR.  No
+    P.862 implementation of its own (misonet_tpu/metrics.py says why)."""
+    try:
+        from pesq import pesq as _pesq  # type: ignore
+    except ImportError:
+        return None
+    mode = "nb" if fs <= 8000 else "wb"
+    return float(_pesq(fs, np.asarray(reference), np.asarray(estimate), mode))
 
 
 def numpy_si_sdr(estimate: np.ndarray, reference: np.ndarray) -> float:

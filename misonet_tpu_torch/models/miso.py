@@ -57,15 +57,12 @@ def check_config(cfg: ModelConfig) -> None:
     exactly as in the JAX package (misonet_tpu/models/miso.py:98), only to
     the fused DenseBlocks of a bfloat16 model, and only forward (decode):
     a float32 model ignores it, and so do the plain modules, which is the
-    path the CPU runs."""
+    path the CPU runs.  ``sequence_parallel`` takes effect, as in the JAX
+    package, only with a mesh (the factories' ``sp_mesh``)."""
     if cfg.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(
             f"compute_dtype={cfg.compute_dtype!r}: the PyTorch port computes "
             f"in {' or '.join(COMPUTE_DTYPES)}"
-        )
-    if cfg.sequence_parallel:
-        raise NotImplementedError(
-            "sequence_parallel=True: parallel/ is not ported yet (ROADMAP)"
         )
 
 
@@ -74,9 +71,14 @@ class MISONet(nn.Module):
 
     Input:  complex64 [B, in_channels, T, F]  (F = 129 for the 8 kHz config)
     Output: complex64 [B, num_spks, T, F]
+
+    With ``cfg.sequence_parallel`` and an ``sp_mesh`` the TCN bottleneck
+    runs time-sharded over the mesh (``parallel/tcn_sp.py``), with the same
+    parameters.
     """
 
-    def __init__(self, cfg: ModelConfig, in_channels: int, num_spks: int = 2):
+    def __init__(self, cfg: ModelConfig, in_channels: int, num_spks: int = 2,
+                 sp_mesh=None):
         super().__init__()
         check_config(cfg)
         self.cfg = cfg
@@ -104,8 +106,15 @@ class MISONet(nn.Module):
                                 DenseBlockFlat(en[i], en[i], en[i]))
             c_in = en[i]
 
-        self.tcn = TemporalConvNet(cfg.tcn_repeats, cfg.tcn_blocks,
-                                   cfg.tcn_channels, cfg.norm_type)
+        if cfg.sequence_parallel and sp_mesh is not None:
+            from misonet_tpu_torch.parallel.tcn_sp import TemporalConvNetSP
+
+            self.tcn = TemporalConvNetSP(cfg.tcn_repeats, cfg.tcn_blocks,
+                                         cfg.tcn_channels, cfg.norm_type,
+                                         sp_mesh)
+        else:
+            self.tcn = TemporalConvNet(cfg.tcn_repeats, cfg.tcn_blocks,
+                                       cfg.tcn_channels, cfg.norm_type)
 
         c_x = cfg.tcn_channels
         for i in range(nb):
@@ -186,8 +195,9 @@ class MISONet(nn.Module):
         return torch.complex(real, imag)
 
 
-def _build(cfg, in_channels, num_spks, device, generator) -> MISONet:
-    model = MISONet(cfg, in_channels, num_spks)
+def _build(cfg, in_channels, num_spks, device, generator,
+           sp_mesh) -> MISONet:
+    model = MISONet(cfg, in_channels, num_spks, sp_mesh)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     init_parameters(model, generator)
@@ -195,25 +205,30 @@ def _build(cfg, in_channels, num_spks, device, generator) -> MISONet:
 
 
 def make_miso1(cfg: ModelConfig, num_mics: int = 6, num_spks: int = 2, *,
-               device="cuda", generator: torch.Generator | None = None):
+               device="cuda", generator: torch.Generator | None = None,
+               sp_mesh=None):
     """Separation net: C-mic complex mixture -> num_spks sources at the
     reference mic (reference model.py:8-111).  Parameters are drawn from
-    ``generator`` (a CPU ``torch.Generator``; seed 0 when None)."""
-    return _build(cfg, num_mics, num_spks, device, generator)
+    ``generator`` (a CPU ``torch.Generator``; seed 0 when None).
+    ``sp_mesh`` activates the sequence-parallel TCN when
+    ``cfg.sequence_parallel``."""
+    return _build(cfg, num_mics, num_spks, device, generator, sp_mesh)
 
 
 def make_miso2(cfg: ModelConfig, num_mics: int = 6, num_spks: int = 2, *,
-               device="cuda", generator: torch.Generator | None = None):
+               device="cuda", generator: torch.Generator | None = None,
+               sp_mesh=None):
     """Joint enhancement net over mixture + per-speaker MISO1 + BF stacks
     (input channels C + 2*num_spks; reference model.py:166-278)."""
-    return _build(cfg, num_mics + 2 * num_spks, num_spks, device, generator)
+    return _build(cfg, num_mics + 2 * num_spks, num_spks, device, generator,
+                  sp_mesh)
 
 
 def make_miso3(cfg: ModelConfig, num_mics: int = 6, *, device="cuda",
-               generator: torch.Generator | None = None):
+               generator: torch.Generator | None = None, sp_mesh=None):
     """Per-speaker enhancement net over mixture + 1 MISO1 + 1 BF channel
     (input channels C + 2; reference model.py:282-395)."""
-    return _build(cfg, num_mics + 2, 1, device, generator)
+    return _build(cfg, num_mics + 2, 1, device, generator, sp_mesh)
 
 
 def enhance_input(mixture: torch.Tensor, miso1: torch.Tensor,

@@ -13,8 +13,16 @@ gradients stay in the parameters' ``.grad``.  Inputs go to the model's
 device.  On a CUDA model the U-Net body runs forward and backward through
 the fused kernels (``flat_dense="auto"``).
 
-Single device: the JAX factories' ``mesh`` argument belongs to
-``parallel/``, which is not ported yet.
+Data parallel: with ``mesh`` (a ``parallel.Mesh``) every rank of the mesh
+calls the step with its own rows of the global batch
+(``parallel.shard_batch``; the JAX steps take the global array sharded
+the same way) and the same parameters (``parallel.replicate``).  The
+gradients are averaged over the mesh in one ``all_reduce`` before the
+global norm, the clip, the NaN guard and the optimizer, so every rank
+takes the same update and the same guard decision; the loss in the
+metrics and the eval steps' loss are the mean over the mesh, which for
+equal shards is the loss of the global batch.  The eval steps return the
+estimates of this rank's rows.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import torch.nn as nn
 from misonet_tpu_torch.config import StftConfig
 from misonet_tpu_torch.losses import loss_enhance, loss_upit, loss_upit_overest
 from misonet_tpu_torch.ops.stft import stft_scaled
+from misonet_tpu_torch.parallel.mesh import Mesh, mean_over
 from misonet_tpu_torch.train.state import Optimizer, TrainState
 
 
@@ -45,15 +54,27 @@ def _check_state(state: TrainState, model, optimizer) -> None:
                          "than the one this step was made for")
 
 
+def _global_loss(loss: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    loss = loss.detach()
+    if mesh is not None:
+        loss = loss.clone()
+        mean_over([loss], mesh)
+    return loss
+
+
 def _update(state: TrainState, model: nn.Module, optimizer: Optimizer,
-            loss_fn: Callable[[], torch.Tensor]):
+            loss_fn: Callable[[], torch.Tensor], mesh: Mesh | None):
     _check_state(state, model, optimizer)
     model.zero_grad(set_to_none=True)
     loss = loss_fn()
     loss.backward()
+    if mesh is not None:   # the same parameters have gradients on every rank
+        mean_over([p.grad for p in optimizer.params if p.grad is not None],
+                  mesh)
     grad_norm = optimizer.update()
     state.step += 1
-    return state, {"loss": loss.detach(), "grad_norm": grad_norm.detach()}
+    return state, {"loss": _global_loss(loss, mesh),
+                   "grad_norm": grad_norm.detach()}
 
 
 def _features(mix_wave, ref_wave, stft_cfg: StftConfig, ref_ch: int):
@@ -65,7 +86,8 @@ def _features(mix_wave, ref_wave, stft_cfg: StftConfig, ref_ch: int):
 
 
 def make_separate_train_step(model: nn.Module, optimizer: Optimizer,
-                             ref_ch: int = 0) -> Callable:
+                             ref_ch: int = 0,
+                             mesh: Mesh | None = None) -> Callable:
     """MISO1 training step.
 
     (state, mix [B,C,T,F] c64, ref [B,S,T,F] c64) -> (state, metrics).
@@ -76,12 +98,13 @@ def make_separate_train_step(model: nn.Module, optimizer: Optimizer,
         mix, ref = _on(model, mix, ref)
         mix = torch.roll(mix, -ref_ch, dims=1)
         return _update(state, model, optimizer,
-                       lambda: loss_upit(model(mix), ref))
+                       lambda: loss_upit(model(mix), ref), mesh)
 
     return step
 
 
-def make_separate_eval_step(model: nn.Module, ref_ch: int = 0) -> Callable:
+def make_separate_eval_step(model: nn.Module, ref_ch: int = 0,
+                            mesh: Mesh | None = None) -> Callable:
     """(mix, ref) -> (loss, estimates) for validation, without gradients
     (trainer.py:224; the JAX step also takes the params, which the port's
     model holds)."""
@@ -90,13 +113,14 @@ def make_separate_eval_step(model: nn.Module, ref_ch: int = 0) -> Callable:
     def step(mix, ref):
         mix, ref = _on(model, mix, ref)
         est = model(torch.roll(mix, -ref_ch, dims=1))
-        return loss_upit(est, ref), est
+        return _global_loss(loss_upit(est, ref), mesh), est
 
     return step
 
 
 def make_separate_wave_train_step(model: nn.Module, optimizer: Optimizer,
                                   stft_cfg: StftConfig, ref_ch: int = 0,
+                                  mesh: Mesh | None = None,
                                   overest: bool = False) -> Callable:
     """MISO1 training step over time-domain batches, the STFT on the device
     in the same step as the forward and backward.
@@ -120,13 +144,14 @@ def make_separate_wave_train_step(model: nn.Module, optimizer: Optimizer,
                 return loss_upit_overest(est, ref, alpha)
             return loss_upit(est, ref)
 
-        return _update(state, model, optimizer, loss_fn)
+        return _update(state, model, optimizer, loss_fn, mesh)
 
     return step
 
 
 def make_separate_wave_eval_step(model: nn.Module, stft_cfg: StftConfig,
-                                 ref_ch: int = 0) -> Callable:
+                                 ref_ch: int = 0,
+                                 mesh: Mesh | None = None) -> Callable:
     """(mix_wave [B,S,C], ref_wave [B,spks,S]) -> (loss, est)."""
 
     @torch.no_grad()
@@ -134,13 +159,13 @@ def make_separate_wave_eval_step(model: nn.Module, stft_cfg: StftConfig,
         mix_wave, ref_wave = _on(model, mix_wave, ref_wave)
         mix, ref = _features(mix_wave, ref_wave, stft_cfg, ref_ch)
         est = model(mix)
-        return loss_upit(est, ref), est
+        return _global_loss(loss_upit(est, ref), mesh), est
 
     return step
 
 
-def make_enhance_train_step(model: nn.Module,
-                            optimizer: Optimizer) -> Callable:
+def make_enhance_train_step(model: nn.Module, optimizer: Optimizer,
+                            mesh: Mesh | None = None) -> Callable:
     """MISO3 (per-speaker) training step, speakers folded into the batch
     (trainer.py:394-425 with the intended per-speaker conditioning).
 
@@ -150,13 +175,13 @@ def make_enhance_train_step(model: nn.Module,
     def step(state: TrainState, x, ref):
         x, ref = _on(model, x, ref)
         return _update(state, model, optimizer,
-                       lambda: loss_enhance(model(x), ref))
+                       lambda: loss_enhance(model(x), ref), mesh)
 
     return step
 
 
-def make_enhance_joint_train_step(model: nn.Module,
-                                  optimizer: Optimizer) -> Callable:
+def make_enhance_joint_train_step(model: nn.Module, optimizer: Optimizer,
+                                  mesh: Mesh | None = None) -> Callable:
     """MISO2 (joint two-speaker) training step: one forward + uPIT loss
     (trainer.py:427-442).
 
@@ -165,6 +190,6 @@ def make_enhance_joint_train_step(model: nn.Module,
     def step(state: TrainState, x, ref):
         x, ref = _on(model, x, ref)
         return _update(state, model, optimizer,
-                       lambda: loss_upit(model(x), ref))
+                       lambda: loss_upit(model(x), ref), mesh)
 
     return step

@@ -18,8 +18,15 @@ Where the JAX trainers initialize parameters from a first batch, the
 port's models hold theirs: the constructors take the models as they are
 (the frozen MISO1 included, so ``EnhanceTrainer`` has no ``miso1_params``
 argument), and a resume loads into them.  The steps update the model and
-the optimizer in place (``train/steps.py``).  One device: a ``mesh`` is
-refused (``parallel/`` is not ported).
+the optimizer in place (``train/steps.py``).
+
+Data parallel (``mesh``, a ``parallel.Mesh``, as the JAX trainers take
+one): every rank of the mesh runs the trainer over the same global batches
+and keeps its own rows of each (``parallel.shard_batch``); the model is
+broadcast from the mesh's first rank when the state is set up
+(``parallel.replicate``), and the steps average the gradients.  Epoch
+losses are global means, so the schedule and early stop agree on every
+rank; the first rank alone prints, logs and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -41,6 +48,12 @@ from misonet_tpu_torch.inference.separate import align_slots, make_full_array_de
 from misonet_tpu_torch.losses import loss_enhance, loss_upit, magnitude_distance
 from misonet_tpu_torch.models import enhance_input
 from misonet_tpu_torch.ops.stft import stft_scaled
+from misonet_tpu_torch.parallel.mesh import (
+    Mesh,
+    mean_over,
+    replicate,
+    shard_batch,
+)
 from misonet_tpu_torch.train.state import (
     PlateauScheduler,
     create_train_state,
@@ -56,12 +69,10 @@ from misonet_tpu_torch.train.steps import (
 from misonet_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "the port trains on one card: a device mesh needs parallel/, "
-            "which is not ported yet (ROADMAP section 0)"
-        )
+def _check_mesh(mesh) -> None:
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a misonet_tpu_torch.parallel.Mesh, "
+                        f"got {type(mesh).__name__}")
 
 
 def _scheduler(opt_cfg: OptimizerConfig, trainer_cfg: TrainerConfig):
@@ -77,6 +88,15 @@ def _scheduler(opt_cfg: OptimizerConfig, trainer_cfg: TrainerConfig):
 class _Trainer:
     """The epoch loop both stages share: train and validation epochs, the
     plateau schedule and early stop, checkpoints, resume."""
+
+    @property
+    def lead(self) -> bool:
+        """Whether this process prints, logs and writes checkpoints."""
+        return self.mesh is None or self.mesh.index == 0
+
+    def _rows(self, batch):
+        """This rank's rows of a global batch."""
+        return batch if self.mesh is None else shard_batch(batch, self.mesh)
 
     def _init_state(self) -> None:
         """The train state over the model as it is, and the resume
@@ -94,6 +114,30 @@ class _Trainer:
             self.scheduler.lr = float(meta.get("lr", self.scheduler.lr))
             self.scheduler.best = float(meta.get("best_val",
                                                  self.scheduler.best))
+        if self.mesh is not None:
+            replicate(self.model, self.mesh)
+
+    def _record(self, epoch, train_loss, val_loss, lr, t_epoch) -> None:
+        """An epoch's logs, checkpoints and summary line."""
+        if self.writer:
+            self.writer.scalar("train/epoch_loss", train_loss, epoch)
+            self.writer.scalar("val/epoch_loss", val_loss, epoch)
+            self.writer.scalar("train/lr", lr, epoch)
+        meta = {
+            "epoch": epoch,
+            "history": self.history,
+            "lr": lr,
+            "best_val": self.scheduler.best,
+        }
+        ckdir = Path(self.cfg.save_folder)
+        if (epoch + 1) % self.cfg.checkpoint_every == 0:
+            save_checkpoint(ckdir, f"epoch{epoch:03d}", self.state, meta)
+        if val_loss <= self.scheduler.best:
+            save_checkpoint(ckdir, "best", self.state, meta)
+        print(
+            f"epoch {epoch}: train {train_loss:.4f} val {val_loss:.4f} "
+            f"lr {lr:.2e} ({time.perf_counter() - t_epoch:.1f}s)"
+        )
 
     def train(self) -> dict[str, list[float]]:
         if self.state is None:
@@ -107,29 +151,11 @@ class _Trainer:
 
             lr = self.scheduler.step(val_loss)
             self.state = set_learning_rate(self.state, lr)
-            if self.writer:
-                self.writer.scalar("train/epoch_loss", train_loss, epoch)
-                self.writer.scalar("val/epoch_loss", val_loss, epoch)
-                self.writer.scalar("train/lr", lr, epoch)
-
-            meta = {
-                "epoch": epoch,
-                "history": self.history,
-                "lr": lr,
-                "best_val": self.scheduler.best,
-            }
-            ckdir = Path(self.cfg.save_folder)
-            if (epoch + 1) % self.cfg.checkpoint_every == 0:
-                save_checkpoint(ckdir, f"epoch{epoch:03d}", self.state, meta)
-            if val_loss <= self.scheduler.best:
-                save_checkpoint(ckdir, "best", self.state, meta)
-
-            print(
-                f"epoch {epoch}: train {train_loss:.4f} val {val_loss:.4f} "
-                f"lr {lr:.2e} ({time.perf_counter() - t_epoch:.1f}s)"
-            )
+            if self.lead:
+                self._record(epoch, train_loss, val_loss, lr, t_epoch)
             if self.cfg.early_stop and self.scheduler.should_stop:
-                print(f"early stop at epoch {epoch}")
+                if self.lead:
+                    print(f"early stop at epoch {epoch}")
                 break
         return self.history
 
@@ -149,24 +175,25 @@ class SeparationTrainer(_Trainer):
         mesh=None,
         writer=None,
     ):
-        _refuse_mesh(mesh)
+        _check_mesh(mesh)
+        self.mesh = mesh
         self.model = model
         self.cfg = trainer_cfg
         self.stft_cfg = stft_cfg
         self.ds_cfg = ds_cfg
         self.train_data = train_data
         self.val_data = val_data
-        self.writer = writer
+        self.writer = writer if self.lead else None
         self.optimizer = make_optimizer(opt_cfg, model.parameters())
         self.scheduler = _scheduler(opt_cfg, trainer_cfg)
         # training and eval share the model: on a card the fused U-Net
         # body trains through its backward kernel (ops/kernels/flat_grad.py)
         self.train_step = make_separate_wave_train_step(
-            model, self.optimizer, stft_cfg, ref_ch=ds_cfg.ref_ch,
+            model, self.optimizer, stft_cfg, ref_ch=ds_cfg.ref_ch, mesh=mesh,
             overest=trainer_cfg.overest_alpha > 0.0,
         )
         self.eval_step = make_separate_wave_eval_step(
-            model, stft_cfg, ref_ch=ds_cfg.ref_ch)
+            model, stft_cfg, ref_ch=ds_cfg.ref_ch, mesh=mesh)
         self.state = None
         self.start_epoch = 0
         self.history: dict[str, list[float]] = {"train": [], "val": []}
@@ -175,6 +202,9 @@ class SeparationTrainer(_Trainer):
         data = self.train_data if training else self.val_data
         total, count = 0.0, 0
         for i, batch in enumerate(data):
+            audio_s = (batch["mix"].shape[0] * batch["mix"].shape[1]
+                       / self.stft_cfg.fs)
+            batch = self._rows(batch)
             mix = torch.as_tensor(batch["mix"])
             ref = torch.as_tensor(batch["ref"])
             if training:
@@ -191,14 +221,13 @@ class SeparationTrainer(_Trainer):
                                                           ref)
                 loss = float(metrics["loss"])
                 if self.writer:
-                    audio_s = mix.shape[0] * mix.shape[1] / self.stft_cfg.fs
                     step = self.state.step
                     self.writer.step_end(step, audio_s)
                     self.writer.scalar("train/loss", loss, step)
                     self.writer.scalar(
                         "train/grad_norm", float(metrics["grad_norm"]), step
                     )
-                if i % self.cfg.print_freq == 0:
+                if self.lead and i % self.cfg.print_freq == 0:
                     print(f"  epoch {epoch} batch {i}: loss {loss:.4f}")
             else:
                 loss_val, est = self.eval_step(mix, ref)
@@ -236,7 +265,8 @@ class EnhanceTrainer(_Trainer):
         mesh=None,
         writer=None,
     ):
-        _refuse_mesh(mesh)
+        _check_mesh(mesh)
+        self.mesh = mesh
         self.model = enhance_model
         self.joint = joint
         self.cfg = trainer_cfg
@@ -244,12 +274,12 @@ class EnhanceTrainer(_Trainer):
         self.ds_cfg = ds_cfg
         self.train_data = train_data
         self.val_data = val_data
-        self.writer = writer
+        self.writer = writer if self.lead else None
         self.optimizer = make_optimizer(opt_cfg, enhance_model.parameters())
         self.scheduler = _scheduler(opt_cfg, trainer_cfg)
         make_step = (make_enhance_joint_train_step if joint
                      else make_enhance_train_step)
-        self.train_step = make_step(enhance_model, self.optimizer)
+        self.train_step = make_step(enhance_model, self.optimizer, mesh=mesh)
         self.decode = make_full_array_decode(
             miso1_model, ds_cfg.num_ch_utilize, ds_cfg.ref_ch)
         self.device = next(enhance_model.parameters()).device
@@ -260,7 +290,10 @@ class EnhanceTrainer(_Trainer):
     @torch.no_grad()
     def eval_step(self, x, y):
         est = self.model(x)
-        return (loss_upit if self.joint else loss_enhance)(est, y), est
+        loss = (loss_upit if self.joint else loss_enhance)(est, y)
+        if self.mesh is not None:
+            mean_over([loss], self.mesh)
+        return loss, est
 
     @torch.no_grad()
     def feature_step(self, mix_wave, ref_wave, miso1_ref=None, bf=None):
@@ -308,6 +341,8 @@ class EnhanceTrainer(_Trainer):
         data = self.train_data if training else self.val_data
         total, count = 0.0, 0
         for i, batch in enumerate(data):
+            n_glob, n_samp = batch["mix"].shape[:2]
+            batch = self._rows(batch)
             feats = self._features(batch)
             x, y = self._build_inputs(*feats)
             if training:
@@ -316,11 +351,11 @@ class EnhanceTrainer(_Trainer):
                 self.state, metrics = self.train_step(self.state, x, y)
                 loss = float(metrics["loss"])
                 if self.writer:
-                    b, n_samp = batch["mix"].shape[:2]
                     step = self.state.step
-                    self.writer.step_end(step, b * n_samp / self.stft_cfg.fs)
+                    self.writer.step_end(step, n_glob * n_samp
+                                         / self.stft_cfg.fs)
                     self.writer.scalar("train/loss", loss, step)
-                if i % self.cfg.print_freq == 0:
+                if self.lead and i % self.cfg.print_freq == 0:
                     print(f"  epoch {epoch} batch {i}: loss {loss:.4f}")
             else:
                 loss_val, est = self.eval_step(x, y)

@@ -128,9 +128,11 @@ def test_load_yaml_matches_jax(name, tmp_path):
 
 
 def test_config_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        tcfg.Config(mesh=tcfg.MeshConfig(num_devices=2))
-    assert tcfg.Config(mesh=tcfg.MeshConfig(num_devices=1)).mesh.num_devices
+    """A data-parallel mesh of any size is taken (parallel/ is ported);
+    only a negative device count is refused."""
+    with pytest.raises(ValueError, match="num_devices=-1"):
+        tcfg.Config(mesh=tcfg.MeshConfig(num_devices=-1))
+    assert tcfg.Config(mesh=tcfg.MeshConfig(num_devices=2)).mesh.num_devices
 
 
 def test_cli_extraction_train_test(corpus):

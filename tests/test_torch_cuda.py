@@ -29,6 +29,10 @@ from misonet_tpu_torch.config import ModelConfig  # noqa: E402
 from misonet_tpu_torch.losses import loss_enhance  # noqa: E402
 from misonet_tpu_torch.models import make_miso1, make_miso3  # noqa: E402
 from misonet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts  # noqa: E402
+from misonet_tpu_torch.ops.kernels.dense_layer import (  # noqa: E402
+    dense_layer,
+    dense_layer_plain,
+)
 from misonet_tpu_torch.ops.kernels.dense_stack import (  # noqa: E402
     dense_stack,
     dense_stack_plain,
@@ -60,7 +64,8 @@ def _counts(**nonzero):
     """The launch counts of a run that launched only ``nonzero``."""
     return {"dense_stack": 0, "dense_stack_bf16": 0, "stencil": 0,
             "stencil_bf16": 0, "stencil_bwd": 0, "stencil_bwd_bf16": 0,
-            "hermitian_solve": 0, "dense_stack_int8": 0, **nonzero}
+            "hermitian_solve": 0, "dense_stack_int8": 0, "dense_layer": 0,
+            "dense_layer_bf16": 0, **nonzero}
 
 
 @pytest.fixture
@@ -548,3 +553,100 @@ def test_fused_bf16_train_step(cuda):
     err = ((fused - plain).norm() / plain.norm()).item()
     sens = ((moved - plain).norm() / plain.norm()).item()
     assert err <= max(2e-2, 2 * sens), (err, sens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("widths,n,fuse_elu,want_stats,t,f", [
+    ((24,), 24, True, True, 37, 63),               # layer 1 of an encoder
+    ((24, 24), 24, True, True, 37, 63),            # layer 2
+    ((24, 24, 24, 24, 24), 24, True, True, 9, 127),  # layer 5
+    ((64, 32, 32, 32, 32), 64, True, True, 9, 7),    # decoder layer 5
+    ((8,) * 8, 16, True, True, 5, 33),             # MAX_SOURCES
+    ((24, 24), 24, False, True, 37, 63),           # no ELU
+    ((24, 24), 24, True, False, 37, 63),           # no statistics
+    ((5, 3), 8, True, True, 3, 2),                 # plane smaller than a tile
+])
+def test_dense_layer_kernel_matches_plain(cuda, dtype, widths, n, fuse_elu,
+                                          want_stats, t, f):
+    """Kernel 2.6 against dense_layer_plain: bf16-stored y within two bf16
+    ulps, float32 outputs and sums within 1e-4 of max-abs."""
+    args = _dense_args(np.random.default_rng(21), widths, n, n, False, t, f,
+                       dtype, dtype)
+    args = (args[0], args[2], args[3], args[4], args[5])
+    counter = "launches" if dtype == torch.float32 else "launches_bf16"
+    before = getattr(dense_layer, counter)
+    got = dense_layer(*args, fuse_elu=fuse_elu, want_stats=want_stats)
+    want = dense_layer_plain(*args, fuse_elu=fuse_elu, want_stats=want_stats)
+    torch.cuda.synchronize()
+    assert getattr(dense_layer, counter) == before + 1
+    assert got[0].dtype == dtype
+    for g, r in zip(got, want):
+        if r is None:
+            assert g is None
+        else:
+            _close_mode(g, r)
+
+
+@pytest.mark.cuda
+def test_dense_layer_refuses_what_it_does_not_take(cuda):
+    rng = np.random.default_rng(3)
+    xs = [_t(rng, (1, 4, 3, 5)) for _ in range(9)]
+    w = _t(rng, (8, 36, 3, 3))
+    stats = [_t(rng, (1, 36)), _t(rng, (1, 36))]
+    with pytest.raises(ValueError, match="1 to 8 sources"):
+        dense_layer(xs, w, _t(rng, (8,)), *stats)
+    with pytest.raises(ValueError, match="w must be"):
+        dense_layer(xs[:2], w[:, :8].to(BF16).contiguous(), _t(rng, (8,)),
+                    stats[0][:, :8].contiguous(),
+                    stats[1][:, :8].contiguous())
+
+
+@pytest.mark.cuda
+def test_dp_step_at_world_size_one_is_the_plain_step(cuda, tmp_path):
+    """The data-parallel step over NCCL at world size 1 (the collectives
+    run; one card cannot show scaling): the narrow bf16 MISO1's updated
+    parameters and gradients bit-identical to the step without a mesh,
+    through the fused kernels (50 / 10 / 60 launches)."""
+    import torch.distributed as dist
+
+    from misonet_tpu_torch.config import OptimizerConfig
+    from misonet_tpu_torch.parallel import (
+        distributed, make_mesh, replicate, shard_batch)
+    from misonet_tpu_torch.train import (
+        create_train_state, make_optimizer, make_separate_train_step)
+
+    cfg = ModelConfig(en_channels=(8, 8, 8, 8, 8, 16, 16),
+                      de_channels=(16, 16, 8, 8, 8, 8, 8), tcn_repeats=1,
+                      tcn_blocks=2, tcn_channels=16)
+    rng = np.random.default_rng(9)
+    mix = torch.complex(_t(rng, (4, 3, 8, 129)), _t(rng, (4, 3, 8, 129)))
+    ref = torch.complex(_t(rng, (4, 2, 8, 129), scale=0.1),
+                        _t(rng, (4, 2, 8, 129), scale=0.1))
+    torch.backends.cudnn.deterministic = True
+    distributed.initialize(f"file://{tmp_path}/rdv", 1, 0, device="cuda",
+                           force=True)
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = make_mesh()
+        out = []
+        for m in (None, mesh):
+            model = make_miso1(cfg, num_mics=3, device=cuda,
+                               generator=torch.Generator().manual_seed(4))
+            if m is not None:
+                replicate(model, m)
+            opt = make_optimizer(OptimizerConfig(), model.parameters())
+            step = make_separate_train_step(model, opt, mesh=m)
+            reset_launch_counts()
+            batch = (mix, ref) if m is None else shard_batch((mix, ref), m)
+            _, metrics = step(create_train_state(model, opt), *batch)
+            torch.cuda.synchronize()
+            assert launch_counts() == _counts(
+                dense_stack_bf16=50, stencil_bf16=10, stencil_bwd_bf16=60)
+            out.append((model, float(metrics["loss"])))
+    finally:
+        dist.destroy_process_group()
+    (single, loss_s), (dp, loss_dp) = out
+    assert loss_s == loss_dp
+    for p, q in zip(single.parameters(), dp.parameters()):
+        assert torch.equal(p, q) and torch.equal(p.grad, q.grad)

@@ -159,7 +159,23 @@ def test_streaming_scm_matches_jax_and_full():
     _close(chunked, full, 1e-5)
 
 
-def test_collective_scm_is_refused():
-    blocks = torch.zeros((2, C, T, F), dtype=torch.complex64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tscm.chunked_scm(blocks, axis_name="blocks")
+def test_collective_scm_is_refused(tmp_path):
+    """The collective SCM is ported: over a one-rank gloo mesh it equals the
+    unsharded SCM exactly (tests/test_torch_parallel.py runs two ranks);
+    what it refuses is a mesh this rank is not in."""
+    import torch.distributed as dist
+
+    from misonet_tpu_torch.parallel import Mesh, make_mesh
+
+    rng = np.random.default_rng(9)
+    blocks = _t((rng.standard_normal((2, C, T, F))
+                 + 1j * rng.standard_normal((2, C, T, F))).astype(np.complex64))
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    try:
+        got = tscm.chunked_scm(blocks, make_mesh())
+        with pytest.raises(ValueError, match="not in the mesh"):
+            tscm.chunked_scm(blocks, Mesh((1,), None))
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got, tscm.chunked_scm(blocks))

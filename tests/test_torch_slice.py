@@ -158,8 +158,8 @@ def test_metrics_match_jax():
 
 def test_evaluator_refuses_unported_modes():
     """Every evaluator mode is ported now (the default, utterance-mode
-    beamforming, and the enhance nets construct); what the port still
-    refuses is the collective SCM.  A bf16 MISO1 (the JAX package's
+    beamforming, and the enhance nets construct), and so is the collective
+    SCM (tests/test_torch_parallel.py).  A bf16 MISO1 (the JAX package's
     default compute dtype) builds and serves unchanged: float32 waves,
     finite scores."""
     from misonet_tpu_torch.beamforming.scm import chunked_scm
@@ -169,9 +169,9 @@ def test_evaluator_refuses_unported_modes():
     assert CascadeEvaluator(model, stft, ds).beamform_utterance
     assert CascadeEvaluator(model, stft, ds, enhance_model=model,
                             beamform_utterance=False).enhance_model is model
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        chunked_scm(torch.zeros((2, 3, 4, 17), dtype=torch.complex64),
-                    axis_name="blocks")
+    blocks = torch.ones((2, 3, 4, 17), dtype=torch.complex64)
+    assert torch.equal(chunked_scm(blocks),
+                       torch.ones((17, 3, 3), dtype=torch.complex64))
     bf16 = dataclasses.replace(SMALL, compute_dtype="bfloat16")
     miso3 = port_miso3(_port(bf16), num_mics=3, device="cpu")
     rng = np.random.default_rng(8)
@@ -228,7 +228,14 @@ def test_port_imports_no_jax():
             "misonet_tpu_torch.data.precompute",
             "misonet_tpu_torch.utils.checkpoint",
             "misonet_tpu_torch.utils.writer",
-            "misonet_tpu_torch.utils.profiling"} <= set(modules)
+            "misonet_tpu_torch.utils.profiling",
+            "misonet_tpu_torch.utils.port_torch",
+            "misonet_tpu_torch.ops.kernels.dense_layer",
+            "misonet_tpu_torch.parallel",
+            "misonet_tpu_torch.parallel.distributed",
+            "misonet_tpu_torch.parallel.mesh",
+            "misonet_tpu_torch.parallel.tcn_sp",
+            "misonet_tpu_torch.dryrun"} <= set(modules)
     _assert_imports_leave_out_jax(modules)
 
 

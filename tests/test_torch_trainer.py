@@ -14,7 +14,7 @@ small plan of tests/test_trainer.py (4 levels, 17 bins).
   second, gives the same parameters, optimizer state and history as 2
   epochs straight, bit for bit.
 * The writer's tags (a recording writer, as tests/test_trainer.py), the
-  overest penalty, checkpoints, and the refusal of a mesh.
+  overest penalty, checkpoints, and the refusal of what is not a mesh.
 """
 
 import dataclasses
@@ -241,8 +241,10 @@ def test_overest_alpha(tmp_path):
 
 
 def test_trainers_refuse_a_mesh(tmp_path):
+    """The trainers take a ``parallel.Mesh`` (tests/test_torch_parallel.py
+    trains on two ranks) and refuse anything else as one."""
     model = tmodels.make_miso1(_port(SMALL), num_mics=3, device="cpu")
     cfg = tcfg.TrainerConfig(save_folder=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         SeparationTrainer(model, cfg, tcfg.OptimizerConfig(), _port(STFT),
                           _port(DS), [], [], mesh=object())

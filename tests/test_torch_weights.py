@@ -122,12 +122,12 @@ def test_bridge_rejects_wrong_shape(narrow_params):
 @pytest.mark.parametrize("kw,err", [
     ({"compute_dtype": "float16"}, ValueError),
     ({"compute_dtype": "float16", "quant_int8": True}, ValueError),
-    ({"compute_dtype": "float32", "sequence_parallel": True},
-     NotImplementedError),
+    ({"compute_dtype": "float32", "norm_type": "LN"}, ValueError),
 ])
 def test_unported_settings_raise(kw, err):
-    """bfloat16 and quant_int8 are ported (see below); a compute dtype the
-    port has no kernels for and the sequence-parallel TCN still raise."""
+    """bfloat16 and quant_int8 are ported (see below), and so is the
+    sequence-parallel TCN (tests/test_torch_tcn_sp.py); a compute dtype the
+    port has no kernels for and a norm the reference has not raise."""
     with pytest.raises(err):
         make_miso1(ModelConfig(**kw))
 

@@ -8,7 +8,10 @@ training over NCCL at world size 1.
 Phases (one or more JSON lines each; any failure exits non-zero):
 
   1. device   card name and power limit; TF32 off for cuDNN and matmuls
-  2. build    nvcc-build the CUDA kernels from misonet_tpu_torch/csrc
+  2. build    nvcc-build the CUDA kernels from misonet_tpu_torch/csrc;
+              count each kernel mode's tensor-core instructions (HMMA /
+              HGMMA in the SASS, ``cuobjdump -sass``) into its record's
+              tensor_core_ops
   3. kernels  each forward kernel against its plain PyTorch version at
               the serving path's shapes (B = 6 shifts x T = 501 frames),
               and the enhancement nets' own stencil shapes (MISO3 / MISO2
@@ -60,7 +63,9 @@ Phases (one or more JSON lines each; any failure exits non-zero):
               sums), y within one bf16 ulp; times of kernel, plain version
               and library (cuDNN's bf16 conv; torch._int_mm over the call's
               im2col matrices for int8, the product only), and of the int8
-              weight-row quantization glue with its launch count
+              weight-row quantization glue with its launch count; fails
+              if the bf16 dense_stack kernel has no tensor-core
+              instructions
  12. bf16-forward  the full-width forward of ModelConfig() (bf16): fused
               vs the plain bf16 path, exactly 50 dense_stack_bf16 and 10
               stencil_bf16 launches, bound max(4e-2, 2x the plain path's
@@ -82,14 +87,16 @@ Phases (one or more JSON lines each; any failure exits non-zero):
               within 1e-2 of max-abs, the float32 outputs (dW, dbias,
               dscale, dmean) within 1e-4; times of kernel, plain version
               (float32 convs of the bf16 operands) and cuDNN's bf16
-              backward pair; the bound at the bf16 tensor-core rate
+              backward pair; the bound at the bf16 tensor-core rate;
+              fails if its kernels have no tensor-core instructions
  18. bf16-train  phase 7 for ModelConfig() (bf16): fused vs plain bf16
               gradients per group, as one vector, within max(1e-2, 2x the
               plain path's movement under the probe) in relative L2 (per
               tensor max-abs reported only), 5 fused steps with exactly 50
               dense_stack_bf16, 10 stencil_bf16 and 60 stencil_bwd_bf16
               launches each and a falling loss, step times, peak memory
-              and a profile
+              and a profile, the step's device busy time beside its wall
+              time
  19. cli      the port's command line (misonet_tpu_torch/cli.py) on a
               synthetic 8-utterance corpus at configs/smswsj.yml's plan
               (bf16): Extraction, Train MISO1, a resumed second epoch,
@@ -102,7 +109,8 @@ Phases (one or more JSON lines each; any failure exits non-zero):
               False), B = 6, T = 501: every case once with the counts reset
               (exact launches), then against dense_layer_plain (1e-4; bf16
               outputs 1e-2), times of kernel, plain version and cuDNN's
-              conv, and the bound
+              conv, and the bound; fails if the bf16 mode's kernel has no
+              tensor-core instructions
  21. reverb   the REVERB plan (configs/reverb_2mix.yml: 8 levels, F = 257,
               8 mics, 384-channel TCN, bf16) at full width: the forward of
               one 4 s chunk's 8 circular shifts, fused vs plain (phase 12's
@@ -110,7 +118,8 @@ Phases (one or more JSON lines each; any failure exits non-zero):
               launches; one train step at the YAML's batch of 16 (or the
               largest power of two whose plain step fits): fused vs plain
               gradients with phase 18's gate, 50 / 10 / 60 launches a step,
-              step times and peak memory
+              step times and peak memory; the device busy time of one
+              forward and one step of each path
  22. parallel parallel/ over NCCL at world size 1 (the mechanism, not
               scaling): the data-parallel bf16 MISO1 wave train step [8, 6,
               501, 129] bit-identical to the step without a mesh (50 / 10 /
@@ -243,13 +252,68 @@ def expect(mode="float32", dense=0, stencil=0, **other):
     return counts
 
 
+# the kernel functions of each counted mode, as substrings of their SASS
+# names (the bf16 modes of dense_stack, dense_layer and stencil_bwd run the
+# tensor-core kernels of csrc/conv_mma.cuh)
+KERNEL_FUNCTIONS = {
+    "dense_stack": ("dense_stack_kernel",),
+    "dense_stack_bf16": ("dense_stack_tc_kernel",),
+    "dense_layer": ("dense_stack_kernel",),
+    "dense_layer_bf16": ("dense_stack_tc_kernel",),
+    "stencil": ("stencil_kernel",), "stencil_bf16": ("stencil_kernel",),
+    "stencil_bwd": ("dgrad_kernel", "wgrad_kernel"),
+    "stencil_bwd_bf16": ("dgrad_tc_kernel", "wgrad_tc_kernel"),
+    "hermitian_solve": ("hermitian_solve_kernel",),
+    "dense_stack_int8": ("dense_stack_int8_kernel",),
+}
+
+
+def tensor_core_ops(lib) -> dict[str, int]:
+    """{counted mode: HMMA / HGMMA instructions in the SASS of its kernel
+    functions}, from ``cuobjdump -sass`` of the built library (the bf16
+    and float32 instances of a shared template are told apart by their
+    mangled storage type)."""
+    import os
+
+    from misonet_tpu_torch.ops.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    per_function, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            per_function[name] = 0
+        elif name and ("HMMA" in line or "HGMMA" in line):
+            per_function[name] += 1
+    counts = {}
+    for mode, parts in KERNEL_FUNCTIONS.items():
+        # a template with float32 and bf16 instances: the mode's own
+        shared = mode.removesuffix("_bf16") in ("dense_stack", "dense_layer",
+                                                "stencil", "stencil_bwd")
+        counts[mode] = sum(
+            n for fn, n in per_function.items()
+            if any(p in fn for p in parts)
+            and (("__nv_bfloat16" in fn) == mode.endswith("_bf16")
+                 or not shared))
+    return counts
+
+
+def check_tensor_cores(record) -> None:
+    """Fail unless the kernels of a mode that must run on the tensor cores
+    have tensor-core instructions."""
+    if not record["tensor_core_ops"]:
+        fail(f"{record['name']}: no tensor-core instructions in its kernels")
+
+
 def new_record(name, replaces, source=None):
     return {"name": name, "route": "cuda",
             "source": f"misonet_tpu_torch/csrc/{source or name}.cu",
             "replaces": replaces, "launches": 0, "max_abs_err": 0.0,
             "max_norm_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
             "bound_by": None, "library_ms": 0.0, "ops_ms": 0.0,
-            "bytes_ms": 0.0}
+            "bytes_ms": 0.0, "tensor_core_ops": 0}
 
 
 def output_errs(name, got, want):
@@ -489,6 +553,7 @@ def phase_lowp_kernels(records):
     from misonet_tpu_torch.ops.kernels.stencil import stencil, stencil_plain
     from misonet_tpu_torch.ops.kernels.stencil_bwd import geometry
 
+    check_tensor_cores(records["dense_stack_bf16"])
     bf = torch.bfloat16
     rng = np.random.default_rng(SEED + 11)
     glue = records["dense_stack_int8"]
@@ -598,6 +663,8 @@ def phase_bwd_kernels(records, dtype=torch.float32):
         geometry, stencil_bwd, stencil_bwd_plain)
 
     bf16 = dtype == torch.bfloat16
+    if bf16:
+        check_tensor_cores(records["stencil_bwd_bf16"])
     rng = np.random.default_rng(SEED + (17 if bf16 else 4))
     cases = [(f"dense {name}", "dense", widths, n, f)
              for name, widths, n, _, f, _ in DENSE_CASES]
@@ -965,11 +1032,12 @@ def profile_call(fn):
         name = e.key
         if "dense_stack_int8_kernel" in name:
             group = "dense_stack_int8"
-        elif "dense_stack_kernel" in name:
+        elif "dense_stack_kernel" in name or "dense_stack_tc_kernel" in name:
             group = "dense_stack"
         elif "stencil_kernel" in name:
             group = "stencil"
-        elif "dgrad_kernel" in name or "wgrad_" in name:
+        elif ("dgrad_kernel" in name or "dgrad_tc_kernel" in name
+              or "wgrad_" in name):
             group = "stencil_bwd"
         elif "hermitian_solve_kernel" in name:
             group = "hermitian_solve"
@@ -1192,6 +1260,13 @@ def phase_train(cfg, device, records, mode="float32"):
 
     prof = profile_call(lambda: step(state, *batch))
     print(json.dumps({"phase": phase, "profile": "one fused step", **prof}),
+          flush=True)
+    # the device's own time beside the host-paced wall time of the step
+    print(json.dumps({"phase": phase, "check": "fused step device time",
+                      "step_ms": times, "wall_ms": prof["wall_ms"],
+                      "device_busy_ms": prof["device_busy_ms"],
+                      "stencil_bwd_device_ms": prof["ms"]["stencil_bwd"],
+                      "dense_stack_device_ms": prof["ms"]["dense_stack"]}),
           flush=True)
 
 
@@ -1570,6 +1645,7 @@ def phase_dense_layer(records):
     from misonet_tpu_torch.ops.kernels.dense_layer import (
         dense_layer, dense_layer_plain)
 
+    check_tensor_cores(records["dense_layer_bf16"])
     rng = np.random.default_rng(SEED + 20)
     f = DENSE_LAYER_F
     cases = []
@@ -1662,9 +1738,11 @@ def phase_reverb(device):
         torch.cuda.synchronize()
         counts = launch_counts()
         t_fused = cuda_ms(lambda: model(x), reps=3)
+        busy = {"fused": profile_call(lambda: model(x))["device_busy_ms"]}
         model.cfg = plain_cfg
         plain = model(x)
         t_plain = cuda_ms(lambda: model(x), reps=3)
+        busy["plain"] = profile_call(lambda: model(x))["device_busy_ms"]
         sens = norm_err(torch.view_as_real(model(moved(x))),
                         torch.view_as_real(plain))[1]
         model.cfg = mcfg
@@ -1676,7 +1754,8 @@ def phase_reverb(device):
                       "launches_per_forward": counts, "max_abs_err": err,
                       "max_norm_err": rel, "bound": bound,
                       "plain_sensitivity": sens, **agreement(fused, plain),
-                      "fused_ms": t_fused, "plain_ms": t_plain}), flush=True)
+                      "fused_ms": t_fused, "plain_ms": t_plain,
+                      "device_busy_ms": busy}), flush=True)
     if counts != expect("bfloat16", 50, 10):
         fail(f"reverb forward launched {counts}")
     if (fused.shape != (mics, 2, x.shape[2], 257)
@@ -1710,7 +1789,7 @@ def phase_reverb(device):
     check_gradients("reverb", "bfloat16", fused, plain, mix, ref,
                     list(mix.shape), REVERB_BODY)
     del mix, ref
-    peaks, times, launches = {}, {}, None
+    peaks, times, launches, step_busy = {}, {}, None, {}
     for name, model in (("fused", fused), ("plain", plain)):
         opt = make_optimizer(cfg.optimizer, model.parameters())
         step = make_separate_wave_train_step(
@@ -1721,6 +1800,10 @@ def phase_reverb(device):
         times[name], metrics = step_ms(step, state, batch, 2)
         counts = launch_counts()
         peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+        prof = profile_call(lambda: step(state, *batch))
+        step_busy[name] = {k: prof[k] for k in ("wall_ms", "device_busy_ms")}
+        step_busy[name]["stencil_bwd_device_ms"] = prof["ms"]["stencil_bwd"]
+        step_busy[name]["dense_stack_device_ms"] = prof["ms"]["dense_stack"]
         if name == "fused":
             launches = counts
             want = expect("bfloat16", 100, 20, stencil_bwd_bf16=120)
@@ -1730,7 +1813,8 @@ def phase_reverb(device):
                      f"{want}), losses {metrics}")
     print(json.dumps({"phase": "reverb", "check": "train step",
                       "batch": batch_size, "launches_two_steps": launches,
-                      "step_ms": times, "peak_gib": peaks}), flush=True)
+                      "step_ms": times, "peak_gib": peaks,
+                      "profile_one_step": step_busy}), flush=True)
 
 
 def free_port() -> int:
@@ -1915,6 +1999,11 @@ def main() -> int:
              "dense_stack"),
         ]
     }
+    tc_ops = tensor_core_ops(lib)
+    for name, r in records.items():
+        r["tensor_core_ops"] = tc_ops[name]
+    print(json.dumps({"phase": "build", "tensor_core_ops": tc_ops}),
+          flush=True)
     seconds = {"build": time.perf_counter() - t0}
 
     def timed(name, fn, *args, **kw):

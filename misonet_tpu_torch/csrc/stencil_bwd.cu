@@ -21,14 +21,14 @@
 //
 // over the (input q, output p, tap j) triples the forward visits.  Tensors
 // stay NCHW, so the TPU kernel's lane framing, tap tables, validity fields
-// and weight/scale packing have no counterpart: each position maps to its
+// and scale packing have no counterpart: each position maps to its
 // taps directly and a tap outside the plane contributes 0.  The mean term
 // of dW that the TPU kernel took from validity fields comes for free here,
 // because the wgrad reads the normalized input xn with its zero halo.
 //
-// Modes (template S, the storage type of g, the sources, the weights and
-// dx): float32 throughout, or bfloat16 with the TPU kernel's rounding
-// points: g arrives folded in float32 and rounded to bfloat16
+// Modes (the storage type of g, the sources, the weights and dx):
+// float32 throughout, or bfloat16 with the TPU kernel's rounding points:
+// g arrives folded in float32 and rounded to bfloat16
 // (ops/kernels/flat_grad.py); the dgrad multiplies bf16 weights by bf16
 // cotangents with float32 sums; dx is rounded to bf16 for the store; sum G
 // and sum G (x - mean) come from the float32 G; the wgrad multiplies bf16
@@ -39,10 +39,9 @@
 // * scale), the very values the port's forward (dense_stack.cu,
 // stencil.cu) convolved.  So dW is the gradient of the forward that ran,
 // the mean term needs no fields, and no large uncentred sum cancels against
-// the mean term in float32.  The bf16 mode does the float32 mode's FMAs
-// (no tensor cores yet); it moves half the bytes.
+// the mean term in float32.
 //
-// Kernels, per call:
+// float32 kernels, per call (CUDA-core FMAs):
 //   dgrad_kernel<MODE>   the stencil.cu tiling (32 input channels x 256
 //                        input positions per block, 16 x 2 per thread,
 //                        weights of 16 cotangent channels staged in shared
@@ -64,39 +63,75 @@
 //                        positions, 4 x 4 register tiles fed from
 //                        32-position chunks staged in shared memory (the
 //                        im2col gather of xn happens while staging).
-//   wgrad_reduce_kernel  sums the splits' partials (next paragraph) in a
-//                        fixed order, in double, into dW and dbias.
+//   wgrad_reduce_kernel  sums the splits' partials (below) in a fixed
+//                        order, in double, into dW and dbias.
+//
+// bfloat16 kernels, per call (tensor cores, mma.sync m16n8k16 bf16 x bf16
+// -> float32; conv_mma.cuh has the layout and the six gather maps):
+//   dgrad_tc_kernel<MODE, NT8>  the dense_stack forward's tensor-core
+//                        kernel run as the mode's dgrad geometry: rows a
+//                        2-D tile of 128 input positions, columns 16..64
+//                        input channels, the reduction over units of 8
+//                        cotangent channels at one tap, g staged
+//                        channels-last (a tap of the other parity, DOWN,
+//                        points at the zero row), the weight packed with
+//                        output c and reduced n by the wrapper
+//                        (tc_pack.py) and copied by cp.async.  Epilogue as
+//                        the forward's, through shared memory: dx and the
+//                        partials of sum G and sum G (x - mean).
+//   wgrad_tc_kernel<MODE, WM, WN, WARPS_N>  rows the (c, tap) units plus
+//                        one unit of ones (dbias) on the 16-row side of
+//                        the mma, columns n on its 8-wide side (so MISO1's
+//                        final N = 4 fills 4 of 8 slots), the reduction
+//                        over chunks of 4 x 16 output positions: A by
+//                        ldmatrix.trans from the normalized input staged
+//                        channels-last (a window row is 8 channels of one
+//                        position, so the transposed load gives 8
+//                        channels x 8 positions, and a tap is a row
+//                        pointer fixed per lane), B by ldmatrix from g
+//                        staged [n][position].  The staging loads the raw
+//                        bf16 input and normalizes with the block's
+//                        (scale, mean) held in shared memory, and reads
+//                        g's rows as aligned 32-bit words.
+//   wgrad_reduce_kernel  as in float32.
 //
 // Where the trouble is, and what the design does about it:
 //   * The wgrad reduction is long: B*T*Fo = 8*501*127 = 509,000 positions
 //     at the enc0/dec6 level.  Blocks run in no order, so the positions are
 //     cut into a fixed number of splits that depends only on the shapes
 //     (about 4 blocks per SM in all); each block loops over its split's
-//     chunks with its sums in registers and writes ONE partial tile.  The
-//     partials are added in split order, so gradients are the same from
-//     run to run (no atomics, as the forward's statistics).  One partial
-//     per 256-position tile would have been ~0.5 GB at dec6 call 0; the
-//     splits keep it to splits * N * (9C + 1) floats (1.6 M there).
+//     chunks with its sums in float32 registers and writes ONE partial
+//     tile.  The partials are added in split order, so gradients are the
+//     same from run to run (no atomics, as the forward's statistics).  One
+//     partial per position tile would have been ~0.5 GB at dec6 call 0;
+//     the splits keep it to splits * N * (9C + 1) floats.  In bf16 a split
+//     sums up to ~100 chunks of 64 positions in the mma's float32
+//     accumulators; phase 17 holds dW to 1e-4 of max-abs against float64
+//     sums and sees ~1e-6.
 //   * dscale/dmean reduce over the input plane per (b, c): the forward's
 //     two-pass statistics (block partials + a fixed-order pass in double).
-//   * Bound on the H100: float32 FMA issue (no tensor cores in this
-//     version).  dgrad and wgrad each do the forward's MACs: 1.19 TFLOP
-//     per B = 8 train step over the 60 calls, >= 17.7 ms at the 67
-//     TFLOP/s float32 peak; the bytes (g, x, dx, dW read or written once)
-//     bound it far lower.  The dgrad reads its 9 taps through L1 and
-//     keeps up with a shared-memory-staged variant (tried, PERF.md); the
-//     wgrad redoes the im2col gather of xn for every 32-position chunk
-//     and is the slower half.  The `up` wgrad multiplies the taps of the
-//     other parity by zero, and N = 4 (final) fills a quarter of the
-//     narrowest tile.  Making them fast (wgmma, TMA, TF32 splits) is
-//     later work.  The bf16 mode runs the same float32 FMAs on bf16 loads
-//     and halves the bytes; at the bf16 tensor-core rate (989 TFLOP/s)
-//     its operations and its bytes bound it about equally, far below the
-//     FMA loop's time (PERF.md).
+//   * float32: bound by float32 FMA issue.  dgrad and wgrad each do the
+//     forward's MACs: 1.19 TFLOP per B = 8 train step over the 60 calls,
+//     >= 17.7 ms at the 67 TFLOP/s float32 peak; the bytes (g, x, dx, dW
+//     read or written once) bound it far lower.  The dgrad reads its 9
+//     taps through L1 and keeps up with a shared-memory-staged variant
+//     (tried, PERF.md); the wgrad redoes the im2col gather of xn for every
+//     32-position chunk and is the slower half.  The `up` wgrad multiplies
+//     the taps of the other parity by zero, and N = 4 (final) fills a
+//     quarter of the narrowest tile.  The bf16 kernels skip the wrong
+//     parity's taps (the zero row costs an mma, not a load) and put N on
+//     the mma's 8-wide side.
+//   * bfloat16: at the bf16 tensor-core rate (989 TFLOP/s) its operations
+//     and its bytes bound it about equally (0.44-0.49 ms over phase 17's
+//     cases), far below its time: what limits it is the staging of the
+//     operands (a diagnostic build without it ran the wgrad ~9x faster,
+//     PERF.md), not the mmas.  The wgrad and the dgrad now take about
+//     half of phase 17's time each.
 
 #include <algorithm>
 
 #include "conv_common.cuh"
+#include "conv_mma.cuh"
 
 namespace misonet {
 namespace {
@@ -539,6 +574,553 @@ int stencil_bwd(int mode, const S* g, int N, const S* x0, int c0, const S* x1,
   }
 }
 
+// ---- the bfloat16 mode on tensor cores --------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+// The gather map of each mode's dgrad (input position q, tap -> the g
+// position p(q, tap)) and of its wgrad (output position p, tap -> the
+// input position q(p, tap)); see tc::Map.
+template <int MODE>
+constexpr int kDgradMap = MODE == B_DENSE ? tc::M_SAME_T
+                        : MODE == B_ENC0  ? tc::M_SHIFT_T
+                        : MODE == B_DOWN  ? tc::M_HALF_T
+                        : MODE == B_UP    ? tc::M_DOUBLE
+                                          : tc::M_SHIFT;
+template <int MODE>
+constexpr int kWgradMap = MODE == B_DENSE ? tc::M_SAME
+                        : MODE == B_ENC0  ? tc::M_SHIFT
+                        : MODE == B_DOWN  ? tc::M_DOUBLE
+                        : MODE == B_UP    ? tc::M_HALF_T
+                                          : tc::M_SHIFT_T;
+
+// dgrad: a tile of tc::GM_POS input positions x BN = 8 NT8 input channels
+// of one batch element; the reduction over (n, tap) reads g staged
+// channels-last; epilogue dx = bf16(scale G) and one partial of sum G and
+// sum G (x - mean) per (b, c, tile).
+template <int MODE, int NT8>
+__global__ void __launch_bounds__(tc::GM_THREADS, tc::gm_min_blocks(NT8))
+dgrad_tc_kernel(const bf16* __restrict__ g, int N, Sources<bf16> src,
+                const float* __restrict__ scale,
+                const float* __restrict__ mean, const bf16* __restrict__ w,
+                bf16* __restrict__ dx0, bf16* __restrict__ dx1,
+                float* __restrict__ part, int T, int Fin, int Fo) {
+  using G = tc::Geo<kDgradMap<MODE>>;
+  constexpr int BN = 8 * NT8;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int C = src.C;
+  const int tw = tc::tile_w(Fin);
+  const int th = tc::GM_POS / tw;
+  const int ntc = (Fin + tw - 1) / tw;
+  const int ntiles = ((T + th - 1) / th) * ntc;
+  const int o0 = blockIdx.y * BN;
+  const int b = blockIdx.z;
+  const int TFi = T * Fin;
+  const int TFo = T * Fo;
+  const int sw = G::width(tw);
+  const int n_win = (th + 2) * sw;
+  unsigned char* ws = tc_smem;
+  unsigned char* win = tc_smem + tc::GM_UNITS * tc::unit_bytes(BN);
+  for (int i = threadIdx.x; i < tc::WIN_ROW / 16; i += tc::GM_THREADS)
+    reinterpret_cast<uint4*>(win + n_win * tc::WIN_ROW)[i] =
+        make_uint4(0, 0, 0, 0);
+  const uint32_t ws_s = tc::smem_addr(ws);
+  const uint32_t win_s = tc::smem_addr(win);
+  const uint32_t zero_s = win_s + n_win * tc::WIN_ROW;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int m = warp * 16 + (lane & 15);
+  const int mr = m / tw;
+  const int tile = blockIdx.x;
+  const int t0 = (tile / ntc) * th;
+  const int f0 = (tile % ntc) * tw;
+  const int lo = G::lo(f0);
+  const int mf = f0 + m - mr * tw;
+  float acc[NT8][4];
+#pragma unroll
+  for (int j = 0; j < NT8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int nb = 0; nb < N; nb += 8 * tc::GMAX) {
+    const int rk = min(8 * tc::GMAX, N - nb);
+    const int groups = (rk + 7) / 8;
+    __syncthreads();  // the previous chunk is consumed
+    // w: the weight packed with output c and reduced n (tc_pack.py)
+    tc::stage_weights_tc<BN>(ws, w, C, o0, nb / 8, groups);
+    const bf16* gp = g + ((size_t)b * N + nb) * TFo;
+    tc::stage_window<tc::GM_THREADS>(
+        win, tc::WIN_ROW, th + 2, sw, t0, lo, T, Fo, groups, rk,
+        [&](int k, int p) { return tc::bf16_at(gp + (size_t)k * TFo + p); });
+    tc::cp_async_wait_all();
+    __syncthreads();
+    const int n_units = groups * 9;
+    tc::gather_mma<NT8>(acc, n_units, ws_s, [&](int u) -> uint32_t {
+      if (u >= n_units) return zero_s;
+      const int gr = u / 9;
+      const int tap = u - 9 * gr;
+      const int kt = tap / 3;
+      const int col = G::col(mf, tap - 3 * kt, lo);
+      if (col < 0) return zero_s;  // a tap of the other parity
+      const int row = mr + 1 + G::TS * (kt - 1);
+      return win_s + (row * sw + col) * tc::WIN_ROW + gr * tc::GROUP_BYTES;
+    });
+  }
+
+  // epilogue: dx = bf16(scale G), the partials of sum G and sum G (x -
+  // mean)
+  float* zt = reinterpret_cast<float*>(ws);
+  __syncthreads();  // every warp is done with the weights
+  tc::stage_acc<NT8>(zt, acc);
+  __syncthreads();
+  tc::finish_tile<BN>(
+      zt, tw, part != nullptr, C - o0, part, (size_t)b * C + o0,
+      (size_t)gridDim.z * C, tile, ntiles,
+      [&](int o, int pr, int pc, float gv) {
+        const int c = o0 + o;
+        const int t = t0 + pr;
+        const int f = f0 + pc;
+        if (c >= C || t >= T || f >= Fin) return make_float2(0.f, 0.f);
+        const int q = t * Fin + f;
+        const size_t pl = src.plane(b, c) * TFi;
+        const float sc = scale ? scale[b * C + c] : 1.f;
+        store((c < src.c0 ? dx0 : dx1) + pl + q, sc * gv);
+        if (!part) return make_float2(0.f, 0.f);
+        const float mu = mean ? mean[b * C + c] : 0.f;
+        return make_float2(gv,
+                           gv * (tc::bf16_at(src.ptr(c) + pl + q) - mu));
+      });
+}
+
+template <int MODE, int NT8>
+cudaError_t launch_dgrad_tc(const bf16* g, int N, Sources<bf16> src,
+                            const float* scale, const float* mean,
+                            const bf16* w, bf16* dx0, bf16* dx1, float* dpart,
+                            int B, int T, int Fin, int Fo, cudaStream_t st) {
+  constexpr int BN = 8 * NT8;
+  const int tw = tc::tile_w(Fin);
+  const int n_win =
+      (tc::GM_POS / tw + 2) * tc::Geo<kDgradMap<MODE>>::width(tw);
+  const size_t smem =
+      tc::GM_UNITS * tc::unit_bytes(BN) + (n_win + 1) * tc::WIN_ROW;
+  cudaError_t e = cudaFuncSetAttribute(
+      dgrad_tc_kernel<MODE, NT8>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(tc::pos_tiles(T, Fin), (src.C + BN - 1) / BN, B);
+  dgrad_tc_kernel<MODE, NT8><<<grid, tc::GM_THREADS, smem, st>>>(
+      g, N, src, scale, mean, w, dx0, dx1, dpart, T, Fin, Fo);
+  return cudaGetLastError();
+}
+
+// wgrad: rows (c, tap) as units of 8 channels at one tap, then one unit of
+// ones (dbias); columns n; the reduction over the output positions in
+// chunks of WG_TH x WG_TW positions of one batch element.  A warp holds
+// WM m16 tiles (2 WM units) x WN n8 tiles; WARPS_N warps across the
+// columns.  A chunk's positions are one 16-position row per k-step: A by
+// ldmatrix.trans from the channels-last window (a row of the window is 8
+// channels at one position, so the transposed load gives 8 channels x 8
+// positions), B by ldmatrix from g staged [n][position].
+constexpr int WG_TH = 4;
+constexpr int WG_TW = 16;
+constexpr int WG_GROUPS = 8;  // groups one block's units can span
+constexpr int WG_ROW = WG_GROUPS * tc::GROUP_BYTES + 16;
+constexpr int WG_GROW = WG_TH * WG_TW * 2 + 16;  // bytes per staged g row
+
+template <int WM, int WN, int WARPS_N>
+struct WgradTile {
+  static constexpr int WARPS_M = 8 / WARPS_N;
+  static constexpr int UB = 2 * WM * WARPS_M;  // units per block (<= 64)
+  static constexpr int BN = 8 * WN * WARPS_N;  // columns per block
+};
+
+inline int wgrad_tc_chunks(int B, int T, int Fo) {
+  return B * ((T + WG_TH - 1) / WG_TH) * ((Fo + WG_TW - 1) / WG_TW);
+}
+
+// (units, columns) per block of a call with N columns; launch_bwd_tc
+// switches on the same thresholds.
+inline void wgrad_tc_tile(int N, int& ub, int& bn) {
+  if (N <= 8) {
+    ub = WgradTile<4, 1, 1>::UB;
+    bn = WgradTile<4, 1, 1>::BN;
+  } else if (N <= 16) {
+    ub = WgradTile<4, 2, 1>::UB;
+    bn = WgradTile<4, 2, 1>::BN;
+  } else if (N <= 32) {
+    ub = WgradTile<4, 4, 1>::UB;
+    bn = WgradTile<4, 4, 1>::BN;
+  } else {
+    ub = WgradTile<4, 4, 2>::UB;
+    bn = WgradTile<4, 4, 2>::BN;
+  }
+}
+
+// Chunks per split of the bf16 wgrad: a function of the shapes alone, so
+// the reduction order is the same from run to run; about 4 blocks per SM.
+inline int wgrad_tc_chunks_per_split(int N, int C, int B, int T, int Fo) {
+  int ub, bn;
+  wgrad_tc_tile(N, ub, bn);
+  const int units = 9 * ((C + 7) / 8) + 1;
+  const int tiles = ((units + ub - 1) / ub) * ((N + bn - 1) / bn);
+  const int chunks = wgrad_tc_chunks(B, T, Fo);
+  int splits = (WG_TARGET_BLOCKS + tiles - 1) / tiles;
+  splits = std::max(1, std::min(splits, chunks));
+  return (chunks + splits - 1) / splits;
+}
+
+inline int wgrad_tc_splits(int N, int C, int B, int T, int Fo) {
+  const int cps = wgrad_tc_chunks_per_split(N, C, B, T, Fo);
+  return (wgrad_tc_chunks(B, T, Fo) + cps - 1) / cps;
+}
+
+template <int MODE, int WM, int WN, int WARPS_N>
+__global__ void __launch_bounds__(256, 2)
+wgrad_tc_kernel(const bf16* __restrict__ g, int N, Sources<bf16> src,
+                const float* __restrict__ scale,
+                const float* __restrict__ mean, float* __restrict__ part,
+                int B, int T, int Fin, int Fo, int chunks_per_split) {
+  using G = tc::Geo<kWgradMap<MODE>>;
+  using Tile = WgradTile<WM, WN, WARPS_N>;
+  constexpr int UB = Tile::UB;
+  constexpr int BN = Tile::BN;
+  constexpr int SW = G::width(WG_TW);
+  constexpr int N_WIN = (WG_TH + 2) * SW;
+  static_assert((UB + 7) / 9 + 1 <= WG_GROUPS,
+                "a block's units span more groups than a window row holds");
+  __shared__ __align__(16) unsigned char win[(N_WIN + 2) * WG_ROW];
+  __shared__ __align__(16) unsigned char gs[BN * WG_GROW];
+  const int C = src.C;
+  const int n_groups = (C + 7) / 8;
+  const int ones_unit = 9 * n_groups;
+  const int u0 = blockIdx.x * UB;
+  const int n0 = blockIdx.y * BN;
+  const int g_lo = min(u0 / 9, n_groups - 1);
+  const int groups = min(n_groups - 1, (u0 + UB - 1) / 9) - g_lo + 1;
+  const int TFi = T * Fin;
+  const int TFo = T * Fo;
+  const int ntc = (Fo + WG_TW - 1) / WG_TW;
+  const int per_b = ((T + WG_TH - 1) / WG_TH) * ntc;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int wm = warp / WARPS_N;
+  const int wn = warp - wm * WARPS_N;
+  // the zero row and the row of ones after the window
+  for (int i = threadIdx.x; i < WG_ROW / 2; i += blockDim.x) {
+    reinterpret_cast<unsigned short*>(win + N_WIN * WG_ROW)[i] = 0;
+    reinterpret_cast<unsigned short*>(win + (N_WIN + 1) * WG_ROW)[i] =
+        0x3f80;  // bf16 1.0
+  }
+  const uint32_t win_s = tc::smem_addr(win);
+  // this lane's A rows: matrix j = lane >> 3 of m16 tile i is (unit
+  // 2 mt + (j & 1), positions 8 (j >> 1) .. + 7 of the k-step's row).
+  // The window column of a tap does not depend on the chunk's origin, so
+  // the address is fixed per lane; k-step r adds r window rows (a_step)
+  const int kk = (lane >> 4) * 8 + (lane & 7);
+  uint32_t a_base[WM], a_step[WM];
+#pragma unroll
+  for (int i = 0; i < WM; ++i) {
+    const int u = u0 + 2 * (wm * WM + i) + ((lane >> 3) & 1);
+    a_base[i] = win_s + N_WIN * WG_ROW;  // the zero row
+    a_step[i] = 0;
+    if (u < ones_unit) {
+      const int gr = u / 9;
+      const int tap = u - 9 * gr;
+      const int kt = tap / 3;
+      const int col = G::col(kk, tap - 3 * kt, G::lo(0));
+      if (col >= 0) {
+        a_base[i] = win_s + ((1 + G::TS * (kt - 1)) * SW + col) * WG_ROW +
+                    (gr - g_lo) * tc::GROUP_BYTES;
+        a_step[i] = SW * WG_ROW;
+      }
+    } else if (u == ones_unit) {
+      a_base[i] += WG_ROW;  // the row of ones
+    }
+  }
+  // B: matrix j of an x4 is (n8 tile + (j >> 1), k half j & 1); an x2
+  // reads matrices 0 and 1
+  const int jb = lane >> 3;
+  const uint32_t b_lane =
+      tc::smem_addr(gs) +
+      ((wn * WN + (WN == 1 ? 0 : (jb >> 1))) * 8 + (lane & 7)) * WG_GROW +
+      (jb & 1) * 16;
+
+  // the staging of a chunk: a window item is 8 channels of one window
+  // position, loaded raw and stored as the forward's normalized input,
+  // rounded as it was there: bf16((x - mean) * scale), with the block's
+  // coefficients of the chunk's batch element (scale 0 past C) and zero
+  // outside the plane; a g item is 2 positions of one column n
+  __shared__ float co_s[WG_GROUPS * 8], co_m[WG_GROUPS * 8];
+  const unsigned short* gu = reinterpret_cast<const unsigned short*>(g);
+  // g's rows are read as 32-bit words where its base allows
+  const bool words = (reinterpret_cast<uintptr_t>(g) & 3) == 0;
+  auto stage = [&](int k) {
+    const int b = k / per_b;
+    const int rem = k - b * per_b;
+    const int t0 = (rem / ntc) * WG_TH;
+    const int f0 = (rem % ntc) * WG_TW;
+    const int lo = G::lo(f0);
+#pragma unroll 2
+    for (int i = threadIdx.x; i < N_WIN * groups; i += 256) {
+      const int gr = i / N_WIN;
+      const int pos = i - gr * N_WIN;
+      const int wr = pos / SW;
+      const int ts = t0 - 1 + wr;
+      const int fs = lo + pos - wr * SW;
+      const int c0 = 8 * (g_lo + gr);
+      uint32_t raw[4] = {0, 0, 0, 0};
+      const bool in = ts >= 0 && ts < T && fs >= 0 && fs < Fin;
+      if (in) {
+        const int p = ts * Fin + fs;
+        if (c0 + 8 <= C && (c0 + 8 <= src.c0 || c0 >= src.c0)) {
+          // 8 channels of one source: consecutive planes
+          const unsigned short* xp = reinterpret_cast<const unsigned short*>(
+              src.ptr(c0) + src.plane(b, c0) * TFi + p);
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            raw[e >> 1] |= (uint32_t)__ldg(xp + (size_t)e * TFi)
+                           << (16 * (e & 1));
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const int c = c0 + e;
+            if (c < C)
+              raw[e >> 1] |=
+                  (uint32_t)__ldg(reinterpret_cast<const unsigned short*>(
+                      src.ptr(c) + src.plane(b, c) * TFi + p))
+                  << (16 * (e & 1));
+          }
+        }
+      }
+      uint32_t q[4] = {0, 0, 0, 0};
+      if (in) {
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const int c = 8 * gr + 2 * h;
+          const float x0 = __uint_as_float(raw[h] << 16);
+          const float x1 = __uint_as_float(raw[h] & 0xffff0000u);
+          q[h] = tc::pack_bf16((x0 - co_m[c]) * co_s[c],
+                               (x1 - co_m[c + 1]) * co_s[c + 1]);
+        }
+      }
+      *reinterpret_cast<uint4*>(win + pos * WG_ROW + gr * tc::GROUP_BYTES) =
+          make_uint4(q[0], q[1], q[2], q[3]);
+    }
+    // g: a thread takes one (n, tile row) run of WG_TW positions; inside
+    // the row it reads aligned 32-bit words (one more, funnel-shifted,
+    // for a run at an odd element), at the plane's edge 2-byte values
+    for (int i = threadIdx.x; i < BN * WG_TH; i += 256) {
+      const int n = i / WG_TH;
+      const int r = i - n * WG_TH;
+      const int t = t0 + r;
+      uint32_t v[WG_TW / 2];
+#pragma unroll
+      for (int k = 0; k < WG_TW / 2; ++k) v[k] = 0;
+      if (n0 + n < N && t < T) {
+        const size_t idx =
+            ((size_t)b * N + n0 + n) * TFo + (size_t)t * Fo + f0;
+        if (words && f0 + WG_TW < Fo) {
+          const uint32_t* wp =
+              reinterpret_cast<const uint32_t*>(gu + (idx & ~(size_t)1));
+          if (idx & 1) {
+            uint32_t u[WG_TW / 2 + 1];
+#pragma unroll
+            for (int k = 0; k <= WG_TW / 2; ++k) u[k] = __ldg(wp + k);
+#pragma unroll
+            for (int k = 0; k < WG_TW / 2; ++k)
+              v[k] = __funnelshift_r(u[k], u[k + 1], 16);
+          } else {
+#pragma unroll
+            for (int k = 0; k < WG_TW / 2; ++k) v[k] = __ldg(wp + k);
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < WG_TW; ++e)
+            if (f0 + e < Fo)
+              v[e >> 1] |= (uint32_t)__ldg(gu + idx + e) << (16 * (e & 1));
+        }
+      }
+      uint4* dst = reinterpret_cast<uint4*>(gs + n * WG_GROW +
+                                            r * WG_TW * 2);
+#pragma unroll
+      for (int k = 0; k < WG_TW / 8; ++k)
+        dst[k] = make_uint4(v[4 * k], v[4 * k + 1], v[4 * k + 2],
+                            v[4 * k + 3]);
+    }
+  };
+
+  float acc[WM][WN][4];
+#pragma unroll
+  for (int i = 0; i < WM; ++i)
+#pragma unroll
+    for (int j = 0; j < WN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  const int k_begin = blockIdx.z * chunks_per_split;
+  const int k_end = min(B * per_b, k_begin + chunks_per_split);
+  int b_cur = -1;
+  for (int k = k_begin; k < k_end; ++k) {
+    const int b = k / per_b;
+    __syncthreads();  // the previous chunk is consumed
+    if (b != b_cur) {  // block-uniform
+      for (int i = threadIdx.x; i < WG_GROUPS * 8; i += 256) {
+        const int c = 8 * g_lo + i;
+        co_s[i] = c < C ? (scale ? scale[b * C + c] : 1.f) : 0.f;
+        co_m[i] = c < C && mean ? mean[b * C + c] : 0.f;
+      }
+      __syncthreads();
+      b_cur = b;
+    }
+    stage(k);
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < WG_TH; ++r) {
+      uint32_t a[WM][4];
+#pragma unroll
+      for (int i = 0; i < WM; ++i)
+        tc::ldsm_x4_trans(a_base[i] + r * a_step[i], a[i]);
+#pragma unroll
+      for (int jp = 0; jp < (WN + 1) / 2; ++jp) {
+        uint32_t bf[4];
+        const uint32_t ba = b_lane + jp * 16 * WG_GROW + r * WG_TW * 2;
+        if (WN == 1) {
+          tc::ldsm_x2(ba, bf[0], bf[1]);
+        } else {
+          tc::ldsm_x4(ba, bf);
+        }
+#pragma unroll
+        for (int i = 0; i < WM; ++i) {
+          tc::mma(acc[i][2 * jp], a[i], bf[0], bf[1]);
+          if (WN > 1) tc::mma(acc[i][2 * jp + 1], a[i], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+
+  // rows: c0/c1 at row lane >> 2 of the m16 tile (unit 2 mt), c2/c3 at
+  // row + 8 (unit 2 mt + 1); a row of a unit is channel 8 gr + row
+  const int CJ = wgrad_cols(C);
+  const size_t base = (size_t)blockIdx.z * N;
+#pragma unroll
+  for (int i = 0; i < WM; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int u = u0 + 2 * (wm * WM + i) + h;
+      int col;
+      if (u < ones_unit) {
+        const int gr = u / 9;
+        const int c = 8 * gr + (lane >> 2);
+        if (c >= C) continue;
+        col = 9 * c + (u - 9 * gr);
+      } else if (u == ones_unit && (lane >> 2) == 0) {
+        col = CJ - 1;
+      } else {
+        continue;
+      }
+#pragma unroll
+      for (int j = 0; j < WN; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = n0 + (wn * WN + j) * 8 + 2 * (lane & 3) + e;
+          if (n < N) part[(base + n) * CJ + col] = acc[i][j][2 * h + e];
+        }
+    }
+}
+
+template <int MODE, int WM, int WN, int WARPS_N>
+cudaError_t launch_wgrad_tc(const bf16* g, int N, Sources<bf16> src,
+                            const float* scale, const float* mean,
+                            float* wpart, int B, int T, int Fin, int Fo,
+                            cudaStream_t st) {
+  using Tile = WgradTile<WM, WN, WARPS_N>;
+  const int units = 9 * ((src.C + 7) / 8) + 1;
+  const int cps = wgrad_tc_chunks_per_split(N, src.C, B, T, Fo);
+  const dim3 grid((units + Tile::UB - 1) / Tile::UB,
+                  (N + Tile::BN - 1) / Tile::BN,
+                  wgrad_tc_splits(N, src.C, B, T, Fo));
+  wgrad_tc_kernel<MODE, WM, WN, WARPS_N><<<grid, 256, 0, st>>>(
+      g, N, src, scale, mean, wpart, B, T, Fin, Fo, cps);
+  return cudaGetLastError();
+}
+
+template <int MODE>
+cudaError_t launch_bwd_tc(const bf16* g, int N, Sources<bf16> src,
+                          const float* scale, const float* mean,
+                          const bf16* w, bf16* dx0, bf16* dx1, float* dpart,
+                          float* sg, float* sgx, float* wpart, float* dw,
+                          float* dbias, int B, int T, int Fin, int Fo,
+                          cudaStream_t st) {
+  const int C = src.C;
+  cudaError_t e;
+  if (dx0) {
+    switch (tc::pick_nt8(C, 8)) {
+#define MISONET_DGRAD_TC(NT8)                                             \
+  case NT8:                                                               \
+    e = launch_dgrad_tc<MODE, NT8>(g, N, src, scale, mean, w, dx0, dx1,   \
+                                   dpart, B, T, Fin, Fo, st);             \
+    break;
+      MISONET_DGRAD_TC(2)
+      MISONET_DGRAD_TC(4)
+      MISONET_DGRAD_TC(6)
+      MISONET_DGRAD_TC(8)
+#undef MISONET_DGRAD_TC
+      default:
+        return cudaErrorInvalidValue;
+    }
+    if (e != cudaSuccess) return e;
+    if (dpart) {
+      e = launch_reduce_stats(dpart, sg, sgx, B * C, tc::pos_tiles(T, Fin),
+                              st);
+      if (e != cudaSuccess) return e;
+    }
+  }
+  if (N <= 8)
+    e = launch_wgrad_tc<MODE, 4, 1, 1>(g, N, src, scale, mean, wpart, B, T,
+                                       Fin, Fo, st);
+  else if (N <= 16)
+    e = launch_wgrad_tc<MODE, 4, 2, 1>(g, N, src, scale, mean, wpart, B, T,
+                                       Fin, Fo, st);
+  else if (N <= 32)
+    e = launch_wgrad_tc<MODE, 4, 4, 1>(g, N, src, scale, mean, wpart, B, T,
+                                       Fin, Fo, st);
+  else
+    e = launch_wgrad_tc<MODE, 4, 4, 2>(g, N, src, scale, mean, wpart, B, T,
+                                       Fin, Fo, st);
+  if (e != cudaSuccess) return e;
+  constexpr int kThreads = 256;
+  wgrad_reduce_kernel<kTransposeMode<MODE>>
+      <<<(N * wgrad_cols(C) + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+          wpart, wgrad_tc_splits(N, C, B, T, Fo), N, C, dw, dbias);
+  return cudaGetLastError();
+}
+
+// Dispatch on the mode (bfloat16; see the C entry points below).
+int stencil_bwd_bf16(int mode, const bf16* g, int N, const bf16* x0, int c0,
+                     const bf16* x1, int c1, const float* scale,
+                     const float* mean, const bf16* w, bf16* dx0, bf16* dx1,
+                     float* dpart, float* sg, float* sgx, float* wpart,
+                     float* dw, float* dbias, int B, int T, int Fin, int Fo,
+                     void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Sources<bf16> src{x0, x1 ? x1 : x0, c0, c0 + c1};
+  switch (mode) {
+#define MISONET_BWD_TC(M)                                                  \
+  case M:                                                                  \
+    return (int)launch_bwd_tc<M>(g, N, src, scale, mean, w, dx0, dx1,      \
+                                 dpart, sg, sgx, wpart, dw, dbias, B, T,   \
+                                 Fin, Fo, st);
+    MISONET_BWD_TC(B_ENC0)
+    MISONET_BWD_TC(B_DOWN)
+    MISONET_BWD_TC(B_UP)
+    MISONET_BWD_TC(B_FINAL)
+    MISONET_BWD_TC(B_DENSE)
+#undef MISONET_BWD_TC
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 }  // namespace misonet
 
@@ -549,12 +1131,18 @@ int stencil_bwd(int mode, const S* g, int N, const S* x0, int c0, const S* x1,
 //   g [B, N, T, Fo] the folded cotangent of the conv output;
 //   x0 [B, c0, T, Fin], x1 [B, c1, T, Fin] or NULL (c1 = 0; dense only);
 //   scale, mean [B, c0 + c1], or NULL (identity, enc0);
-//   w [N, C, 3, 3] for modes 0, 1, 4 and [C, N, 3, 3] for modes 2, 3;
+//   w [N, C, 3, 3] for modes 0, 1, 4 and [C, N, 3, 3] for modes 2, 3
+//   (float32); bfloat16: packed by ops/kernels/tc_pack.py with output
+//   channel c and reduced channel n, [ceil(N/8), 9, C, 8] (read only by
+//   the dgrad);
 //   dx0, dx1 like x0, x1, or dx0 = NULL to skip the dgrad (then dpart, sg
 //   and sgx are unused);
-//   dpart [2, B, C, ceil(T*Fin/256)] scratch and sg, sgx [B, C] (sum G,
+//   dpart [2, B, C, ntiles] scratch, ntiles = ceil(T*Fin/256) (float32)
+//   or misonet_tc_pos_tiles(T, Fin) (bfloat16), and sg, sgx [B, C] (sum G,
 //   sum G (x - mean)), or dpart = NULL to skip those sums;
-//   wpart [misonet_stencil_bwd_splits(), N, 9C + 1] scratch;
+//   wpart [splits, N, 9C + 1] scratch, splits from
+//   misonet_stencil_bwd_splits (float32) or
+//   misonet_stencil_bwd_bf16_splits (bfloat16);
 //   dw of w's shape (float32), dbias [N].
 // Return cudaGetLastError() after the launches (0 on success); an unknown
 // mode returns cudaErrorInvalidValue.
@@ -577,13 +1165,20 @@ extern "C" int misonet_stencil_bwd_bf16(
     const __nv_bfloat16* w, __nv_bfloat16* dx0, __nv_bfloat16* dx1,
     float* dpart, float* sg, float* sgx, float* wpart, float* dw,
     float* dbias, int B, int T, int Fin, int Fo, void* stream) {
-  return misonet::stencil_bwd(mode, g, N, x0, c0, x1, c1, scale, mean, w,
-                              dx0, dx1, dpart, sg, sgx, wpart, dw, dbias, B,
-                              T, Fin, Fo, stream);
+  return misonet::stencil_bwd_bf16(mode, g, N, x0, c0, x1, c1, scale, mean,
+                                   w, dx0, dx1, dpart, sg, sgx, wpart, dw,
+                                   dbias, B, T, Fin, Fo, stream);
 }
 
 // Splits of the wgrad's position range for a call: the leading axis of its
 // `wpart` scratch.  K = B * T * Fo output positions.
 extern "C" int misonet_stencil_bwd_splits(int N, int C, int K) {
   return misonet::wgrad_splits(N, C, K);
+}
+
+// The same for the bfloat16 mode, whose splits cut B * T * Fo output
+// positions into chunks of 4 x 16 positions of one batch element.
+extern "C" int misonet_stencil_bwd_bf16_splits(int N, int C, int B, int T,
+                                               int Fo) {
+  return misonet::wgrad_tc_splits(N, C, B, T, Fo);
 }

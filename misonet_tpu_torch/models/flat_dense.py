@@ -142,7 +142,11 @@ class DenseBlockFlat(DenseBlock):
                tuple((id(w), w.data_ptr(), w._version) for w in weights))
         cache = self.__dict__.setdefault("_stacks", {})
         if key is None or cache.get(dtype, (None,))[0] != key:
-            with torch.no_grad():
+            # keyed stacks are built outside inference mode, so they keep a
+            # version counter and the bf16 kernels' packed copies of them
+            # (ops/kernels/tc_pack.py) are cached too
+            inference = key is None and torch.is_inference_mode_enabled()
+            with torch.no_grad(), torch.inference_mode(inference):
                 cache[dtype] = (key, [w.to(dtype) for w in self._stack()])
             # keeps the keyed weights alive, so no other tensor can take
             # their ids or storage while the key stands

@@ -14,8 +14,9 @@ No path of either package calls it (the DenseBlocks run the stacked
 
 CUDA source: ``misonet_tpu_torch/csrc/dense_stack.cu`` (entry points
 ``misonet_dense_layer`` and ``misonet_dense_layer_bf16``): the
-``dense_stack`` kernel with no partials in or out, every row finalized, up
-to ``MAX_SOURCES`` sources and the two switches.
+``dense_stack`` kernels (CUDA-core FMAs in float32, tensor cores in bf16,
+the weight packed by ``tc_pack.packed``) with no partials in or out, every
+row finalized, up to ``MAX_SOURCES`` sources and the two switches.
 
 The mode follows the sources' dtype, as in ``dense_stack``: float32
 throughout, or bfloat16 sources, weights and y with float32 bias, scale,
@@ -36,8 +37,9 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from misonet_tpu_torch.ops.kernels import build
-from misonet_tpu_torch.ops.kernels.dense_stack import DTYPES, check_tensor
+from misonet_tpu_torch.ops.kernels import tc_pack
+from misonet_tpu_torch.ops.kernels.dense_stack import (
+    DTYPES, check_tensor, pos_tiles, library as dense_stack_library)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -110,10 +112,12 @@ def dense_layer(xs, w, bias, scale, mean, *, fuse_elu: bool = True,
     y = torch.empty((b, n, t, f), device=device, dtype=dtype)
     sums = sqs = part = None
     if want_stats:
-        ntiles = -(-(t * f) // lib.misonet_pos_tile())
+        ntiles = pos_tiles(lib, bf16, t, f)
         part = torch.empty((2, b, n, ntiles), device=device)
         sums = torch.empty((b, n), device=device)
         sqs = torch.empty((b, n), device=device)
+    # the bf16 kernel reads its weights packed for its tensor cores
+    wk = tc_pack.packed(w, widths) if bf16 else w
     ptrs = (_P * len(xs))(*(x.data_ptr() for x in xs))
     cs = (_I * len(xs))(*widths)
 
@@ -123,7 +127,7 @@ def dense_layer(xs, w, bias, scale, mean, *, fuse_elu: bool = True,
     with torch.cuda.device(device):
         err = entry(
             ptrs, cs, len(xs), scale.data_ptr(), mean.data_ptr(),
-            w.data_ptr(), bias.data_ptr(), y.data_ptr(), ptr(part),
+            wk.data_ptr(), bias.data_ptr(), y.data_ptr(), ptr(part),
             ptr(sums), ptr(sqs), b, t, f, n, int(fuse_elu), int(want_stats),
             torch.cuda.current_stream().cuda_stream,
         )
@@ -141,13 +145,11 @@ dense_layer.launches_bf16 = 0
 
 
 def library() -> ctypes.CDLL:
-    lib = build.library()
+    lib = dense_stack_library()
     for entry in (lib.misonet_dense_layer, lib.misonet_dense_layer_bf16):
         entry.argtypes = [
             ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _P, _P, _P, _P, _P,
             _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
         ]
         entry.restype = _I
-    lib.misonet_pos_tile.argtypes = []
-    lib.misonet_pos_tile.restype = _I
     return lib

@@ -17,7 +17,10 @@ bfloat16: the sources, ``acc_in``, ``w_stack`` and the outputs ``y`` and
 float32.  The bfloat16 mode rounds where the TPU kernel does: the
 normalized input (its bf16 patch) and the weights are bfloat16, the
 products are summed in float32, ``acc_out`` and ``y`` are rounded for the
-store, and the statistics come from the float32 ``y``.
+store, and the statistics come from the float32 ``y``.  The float32 mode
+runs CUDA-core FMAs; the bfloat16 mode runs its products on the tensor
+cores and reads ``w_stack`` packed by ``tc_pack.packed`` (cached per weight
+tensor and version).
 
 ``dense_stack`` launches the kernel for CUDA tensors (raising on anything
 it does not take) and runs ``dense_stack_plain`` for CPU tensors.  Each
@@ -32,7 +35,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from misonet_tpu_torch.ops.kernels import build
+from misonet_tpu_torch.ops.kernels import build, tc_pack
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -121,19 +124,21 @@ def dense_stack(xs, acc_in, w_stack, bias, scale, mean, n_fin: int):
     lib = library()
     bf16 = dtype == torch.bfloat16
     entry = lib.misonet_dense_stack_bf16 if bf16 else lib.misonet_dense_stack
-    ntiles = -(-(t * f) // lib.misonet_pos_tile())
+    ntiles = pos_tiles(lib, bf16, t, f)
     y = torch.empty((b, n_fin, t, f), device=device, dtype=dtype)
     acc_out = (torch.empty((b, n - n_fin, t, f), device=device, dtype=dtype)
                if n > n_fin else None)
     part = torch.empty((2, b, n_fin, ntiles), device=device)
     sums = torch.empty((b, n_fin), device=device)
     sqs = torch.empty((b, n_fin), device=device)
+    # the bf16 kernel reads its weights packed for its tensor cores
+    wk = tc_pack.packed(w_stack, widths) if bf16 else w_stack
     x1 = xs[1].data_ptr() if len(xs) == 2 else None
     with torch.cuda.device(device):
         err = entry(
             xs[0].data_ptr(), widths[0], x1,
             widths[1] if len(xs) == 2 else 0,
-            scale.data_ptr(), mean.data_ptr(), w_stack.data_ptr(),
+            scale.data_ptr(), mean.data_ptr(), wk.data_ptr(),
             bias.data_ptr(),
             acc_in.data_ptr() if acc_in is not None else None,
             y.data_ptr(),
@@ -154,6 +159,15 @@ dense_stack.launches = 0
 dense_stack.launches_bf16 = 0
 
 
+def pos_tiles(lib, bf16: bool, t: int, f: int) -> int:
+    """Position tiles of a T x F plane, one statistics partial each per
+    (batch, channel): flat runs of ``misonet_pos_tile()`` positions in the
+    float32 kernels, the tensor-core kernels' 2-D tiles in bfloat16."""
+    if bf16:
+        return lib.misonet_tc_pos_tiles(t, f)
+    return -(-(t * f) // lib.misonet_pos_tile())
+
+
 def library() -> ctypes.CDLL:
     lib = build.library()
     for entry in (lib.misonet_dense_stack, lib.misonet_dense_stack_bf16):
@@ -164,4 +178,6 @@ def library() -> ctypes.CDLL:
         entry.restype = _I
     lib.misonet_pos_tile.argtypes = []
     lib.misonet_pos_tile.restype = _I
+    lib.misonet_tc_pos_tiles.argtypes = [_I, _I]
+    lib.misonet_tc_pos_tiles.restype = _I
     return lib

@@ -21,7 +21,10 @@ are float32 (the parameters stay float32).  The bfloat16 mode multiplies
 bfloat16 operands (the weights and cotangents for the dgrad; the forward's
 bf16-rounded normalized input ``bf16((x - mean) * scale)`` and the
 cotangents for the wgrad) and sums in float32; ``dx`` is rounded for the
-store, ``dscale``/``dmean`` come from the float32 dgrad.
+store, ``dscale``/``dmean`` come from the float32 dgrad.  The float32 mode
+runs CUDA-core FMAs; the bfloat16 mode runs its products on the tensor
+cores, its dgrad reading the weight packed by ``tc_pack.packed`` (output
+channel c, reduced channel n; cached per weight tensor and version).
 
 ``stencil_bwd`` launches the kernel for CUDA tensors (raising on anything it
 does not take, or on a refused launch) and runs ``stencil_bwd_plain`` for
@@ -37,8 +40,9 @@ import torch
 import torch.nn.functional as F
 from torch.nn.grad import conv2d_input, conv2d_weight
 
-from misonet_tpu_torch.ops.kernels import build
-from misonet_tpu_torch.ops.kernels.dense_stack import DTYPES, check_tensor
+from misonet_tpu_torch.ops.kernels import tc_pack
+from misonet_tpu_torch.ops.kernels.dense_stack import (
+    DTYPES, check_tensor, pos_tiles, library as dense_stack_library)
 from misonet_tpu_torch.ops.kernels.stencil import out_bins
 
 _P = ctypes.c_void_p
@@ -157,15 +161,21 @@ def stencil_bwd(g, xs, w, scale, mean, mode: str, need_dx: bool = True,
     bf16 = dtype == torch.bfloat16
     entry = lib.misonet_stencil_bwd_bf16 if bf16 else lib.misonet_stencil_bwd
     dxs = tuple(torch.empty_like(x) for x in xs) if need_dx else None
-    ntiles = -(-(t * f_in) // lib.misonet_pos_tile())
+    ntiles = pos_tiles(lib, bf16, t, f_in)
     dpart = (torch.empty((2, b, c, ntiles), device=device) if stats
              else None)
     sg = torch.empty((b, c), device=device) if stats else None
     sgx = torch.empty((b, c), device=device) if stats else None
-    splits = lib.misonet_stencil_bwd_splits(n, c, b * t * f_out)
+    splits = (lib.misonet_stencil_bwd_bf16_splits(n, c, b, t, f_out) if bf16
+              else lib.misonet_stencil_bwd_splits(n, c, b * t * f_out))
     wpart = torch.empty((splits, n, 9 * c + 1), device=device)
     dw = torch.empty(w.shape, device=device)
     dbias = torch.empty((n,), device=device)
+
+    # the bf16 dgrad reads the weight packed for its tensor cores, output
+    # channel c and reduced channel n
+    wk = (tc_pack.packed(w, (n,), transpose=mode not in _TRANSPOSE)
+          if bf16 and need_dx else w)
 
     def ptr(v):
         return v.data_ptr() if v is not None else None
@@ -175,7 +185,7 @@ def stencil_bwd(g, xs, w, scale, mean, mode: str, need_dx: bool = True,
             MODES[mode], g.data_ptr(), n, xs[0].data_ptr(), widths[0],
             ptr(xs[1]) if len(xs) == 2 else None,
             widths[1] if len(xs) == 2 else 0,
-            ptr(scale), ptr(mean), w.data_ptr(),
+            ptr(scale), ptr(mean), wk.data_ptr(),
             ptr(dxs[0]) if dxs else None,
             ptr(dxs[1]) if dxs and len(xs) == 2 else None,
             ptr(dpart), ptr(sg), ptr(sgx), wpart.data_ptr(), dw.data_ptr(),
@@ -199,7 +209,7 @@ stencil_bwd.launches_bf16 = 0
 
 
 def library() -> ctypes.CDLL:
-    lib = build.library()
+    lib = dense_stack_library()
     for entry in (lib.misonet_stencil_bwd, lib.misonet_stencil_bwd_bf16):
         entry.argtypes = [
             _I, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -208,6 +218,6 @@ def library() -> ctypes.CDLL:
         entry.restype = _I
     lib.misonet_stencil_bwd_splits.argtypes = [_I, _I, _I]
     lib.misonet_stencil_bwd_splits.restype = _I
-    lib.misonet_pos_tile.argtypes = []
-    lib.misonet_pos_tile.restype = _I
+    lib.misonet_stencil_bwd_bf16_splits.argtypes = [_I, _I, _I, _I, _I]
+    lib.misonet_stencil_bwd_bf16_splits.restype = _I
     return lib

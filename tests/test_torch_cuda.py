@@ -358,8 +358,21 @@ def _dense_args(rng, widths, n, n_fin, with_acc, t, f, act, wdt):
     )
 
 
+# the bf16 mode's tensor-core edges: channels that are no multiple of 16
+# (a unit is 8 channels at one tap), two chunks of the reduction, two
+# sources with acc_in, a plane narrower than 8 bins
+TC_DENSE_CASES = [
+    ((20,), 40, 8, True, 9, 63),
+    ((24,), 24, 24, False, 9, 127),
+    ((40,), 48, 16, False, 9, 31),
+    ((24, 24), 96, 24, True, 9, 63),
+    ((20, 20), 24, 8, True, 5, 7),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("widths,n,n_fin,with_acc,t,f", DENSE_CASES)
+@pytest.mark.parametrize("widths,n,n_fin,with_acc,t,f",
+                         DENSE_CASES + TC_DENSE_CASES)
 def test_dense_stack_bf16_kernel_matches_plain(cuda, widths, n, n_fin,
                                                with_acc, t, f):
     args = _dense_args(np.random.default_rng(12), widths, n, n_fin,
@@ -481,6 +494,10 @@ def test_bf16_forward_launches(cuda, quant):
     ("down", (24,), 32, 127, 37), ("down", (3,), 40, 5, 2),
     ("up", (64,), 24, 63, 37), ("up", (5,), 33, 1, 3),   # F_in = 1
     ("final", (48,), 4, 127, 37), ("final", (48,), 2, 127, 37),
+    # tensor-core edges: C = 20, 24, 40 (no multiple of 16), two sources
+    ("dense", (20,), 40, 63, 9), ("dense", (40,), 24, 31, 9),
+    ("dense", (24, 24), 48, 63, 9), ("enc0", (20,), 24, 129, 9),
+    ("down", (40,), 32, 63, 9), ("up", (24,), 20, 31, 9),
 ])
 def test_stencil_bwd_bf16_kernel_matches_plain(cuda, mode, widths, n, f_in,
                                                t):
@@ -511,6 +528,44 @@ def test_stencil_bwd_bf16_kernel_matches_plain(cuda, mode, widths, n, f_in,
                 _close_mode(gi, ri)
         else:
             _close_mode(g, r)
+
+
+@pytest.mark.cuda
+def test_dense_stack_bf16_repeats_bit_for_bit(cuda):
+    """Two calls on the same inputs give the same bits: the tensor-core
+    kernel sums in a fixed order and its statistics take the fixed-order
+    two-pass reduction (the train phases compare repeat gradients)."""
+    args = _dense_args(np.random.default_rng(18), (24, 24), 96, 24, True,
+                       37, 63, BF16, BF16)
+    first = dense_stack(*args, 24)
+    again = dense_stack(*args, 24)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,widths,n,f_in", [
+    ("dense", (24, 24), 144, 63), ("final", (48,), 4, 127),
+])
+def test_stencil_bwd_bf16_repeats_bit_for_bit(cuda, mode, widths, n, f_in):
+    """Two backward calls on the same inputs give the same bits: the
+    wgrad's fixed splits added in split order, the dgrad's statistics in
+    a fixed order, no atomics."""
+    rng = np.random.default_rng(19)
+    b, t, c = 2, 37, sum(widths)
+    f_out = f_in if mode == "dense" else out_bins(mode, f_in)
+    wshape = (c, n, 3, 3) if mode in ("up", "final") else (n, c, 3, 3)
+    args = (_t(rng, (b, n, t, f_out)).to(BF16),
+            [_t(rng, (b, w, t, f_in)).to(BF16) for w in widths],
+            _t(rng, wshape, scale=0.2).to(BF16),
+            _t(rng, (b, c), 0.5, 1.5), _t(rng, (b, c), -0.5, 0.5), mode)
+    first = stencil_bwd(*args)
+    again = stencil_bwd(*args)
+    for a, r in zip(first, again):
+        if isinstance(a, tuple):
+            assert all(torch.equal(x, y) for x, y in zip(a, r))
+        else:
+            assert torch.equal(a, r)
 
 
 @pytest.mark.cuda
@@ -563,6 +618,7 @@ def test_fused_bf16_train_step(cuda):
     ((24, 24, 24, 24, 24), 24, True, True, 9, 127),  # layer 5
     ((64, 32, 32, 32, 32), 64, True, True, 9, 7),    # decoder layer 5
     ((8,) * 8, 16, True, True, 5, 33),             # MAX_SOURCES
+    ((24,) * 6, 24, True, True, 9, 127),           # six sources
     ((24, 24), 24, False, True, 37, 63),           # no ELU
     ((24, 24), 24, True, False, 37, 63),           # no statistics
     ((5, 3), 8, True, True, 3, 2),                 # plane smaller than a tile

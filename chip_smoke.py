@@ -10,8 +10,8 @@ Phases (one or more JSON lines each; any failure exits non-zero):
   1. device   card name and power limit; TF32 off for cuDNN and matmuls
   2. build    nvcc-build the CUDA kernels from misonet_tpu_torch/csrc;
               count each kernel mode's tensor-core instructions (HMMA /
-              HGMMA in the SASS, ``cuobjdump -sass``) into its record's
-              tensor_core_ops
+              HGMMA, and IMMA / IGMMA for int8, in the SASS, ``cuobjdump
+              -sass``) into its record's tensor_core_ops
   3. kernels  each forward kernel against its plain PyTorch version at
               the serving path's shapes (B = 6 shifts x T = 501 frames),
               and the enhancement nets' own stencil shapes (MISO3 / MISO2
@@ -57,25 +57,33 @@ Phases (one or more JSON lines each; any failure exits non-zero):
               launches per block, per-block latency
  11. lowp-kernels  the bf16 modes of dense_stack and stencil and the int8
               kernel dense_stack_int8 against their plain versions at the
-              phase-3 shapes, in the working type: bf16-stored outputs
-              within 1e-2 of max-abs (two bf16 ulps), float32 statistics
-              within 1e-4; int8: acc_out bit-identical (the same integer
-              sums), y within one bf16 ulp; times of kernel, plain version
-              and library (cuDNN's bf16 conv; torch._int_mm over the call's
-              im2col matrices for int8, the product only), and of the int8
-              weight-row quantization glue with its launch count; fails
-              if the bf16 dense_stack kernel has no tensor-core
-              instructions
+              phase-3 shapes (and the bf16 stencil at the enhancement
+              nets' and the REVERB plan's enc0 / final shapes, reported
+              apart), in the working type: bf16-stored outputs within
+              1e-2 of max-abs (two bf16 ulps), float32 statistics within
+              1e-4; int8: acc_out bit-identical (the same integer sums), y
+              within one bf16 ulp; times of kernel, plain version and
+              library (cuDNN's bf16 conv; torch._int_mm over the call's
+              im2col matrices for int8, the product only); the int8
+              weight-row kernel (quantize_rows) against its plain twin,
+              bit for bit (qw, corr, rq), and the kernels of one int8 call
+              (the earlier version's 34 on a line of its own); fails if the
+              bf16 dense_stack or stencil kernel has no HMMA, the int8
+              kernel no IMMA, or a call launches the row kernel other than
+              once
  12. bf16-forward  the full-width forward of ModelConfig() (bf16): fused
               vs the plain bf16 path, exactly 50 dense_stack_bf16 and 10
               stencil_bf16 launches, bound max(4e-2, 2x the plain path's
-              movement under the 3e-6 perturbation probe)
+              movement under the 3e-6 perturbation probe); its kernels per
+              forward (the FMA-stencil version's 1,447 on a line of its own)
  13. int8-forward  the same model with quant_int8=True: exactly 50
-              dense_stack_int8 and 10 stencil_bf16 launches; against the
-              same composition over the kernels' plain versions (swapped in
-              here only), bound max(INT8_FORWARD_BOUND, 2x that
-              composition's movement under the probe); int8 vs bf16 rms and
-              correlation
+              dense_stack_int8, 50 quantize_rows and 10 stencil_bf16
+              launches; against the same composition over the kernels'
+              plain versions (swapped in here only), bound
+              max(INT8_FORWARD_BOUND, 2x that composition's movement under
+              the probe); int8 vs bf16 rms and correlation; its kernels per
+              forward (the 3,246 of the version with the rows quantized in
+              PyTorch on a line of its own)
  14. serve    the phase-5 requests through the bf16 and the int8 model
  15. cascade  the bf16 cascade (MISO3 utterance and chunk mode, MISO2
               joint): 100 dense_stack_bf16, 20 stencil_bf16 and 1
@@ -177,6 +185,7 @@ SEED = 0
 PEAK_FLOPS = 67e12
 PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
+PEAK_FP64 = 34e12  # float64 outside the tensor cores (same data sheet)
 PEAK_BYTES = 3.35e12
 # the counted kernel modes of each precision's forward
 MODES = {"float32": ("dense_stack", "stencil"),
@@ -253,26 +262,31 @@ def expect(mode="float32", dense=0, stencil=0, **other):
 
 
 # the kernel functions of each counted mode, as substrings of their SASS
-# names (the bf16 modes of dense_stack, dense_layer and stencil_bwd run the
-# tensor-core kernels of csrc/conv_mma.cuh)
+# names (the bf16 modes of dense_stack, dense_layer, stencil and
+# stencil_bwd and the int8 mode run the tensor-core kernels of
+# csrc/conv_mma.cuh)
 KERNEL_FUNCTIONS = {
     "dense_stack": ("dense_stack_kernel",),
     "dense_stack_bf16": ("dense_stack_tc_kernel",),
     "dense_layer": ("dense_stack_kernel",),
     "dense_layer_bf16": ("dense_stack_tc_kernel",),
-    "stencil": ("stencil_kernel",), "stencil_bf16": ("stencil_kernel",),
+    "stencil": ("stencil_kernel",), "stencil_bf16": ("stencil_tc_kernel",),
     "stencil_bwd": ("dgrad_kernel", "wgrad_kernel"),
     "stencil_bwd_bf16": ("dgrad_tc_kernel", "wgrad_tc_kernel"),
     "hermitian_solve": ("hermitian_solve_kernel",),
-    "dense_stack_int8": ("dense_stack_int8_kernel",),
+    "dense_stack_int8": ("dense_stack_int8_tc_kernel",),
+    "quantize_rows": ("quantize_rows_kernel",),
 }
+# the SASS opcodes of the tensor cores: bf16 / fp16 (HMMA, wgmma HGMMA)
+# and integer (IMMA, IGMMA)
+TENSOR_CORE_OPS = ("HMMA", "HGMMA", "IMMA", "IGMMA")
 
 
 def tensor_core_ops(lib) -> dict[str, int]:
-    """{counted mode: HMMA / HGMMA instructions in the SASS of its kernel
-    functions}, from ``cuobjdump -sass`` of the built library (the bf16
-    and float32 instances of a shared template are told apart by their
-    mangled storage type)."""
+    """{counted mode: HMMA / HGMMA / IMMA / IGMMA instructions in the SASS
+    of its kernel functions}, from ``cuobjdump -sass`` of the built library
+    (the bf16 and float32 instances of a shared template are told apart by
+    their mangled storage type)."""
     import os
 
     from misonet_tpu_torch.ops.kernels import build
@@ -285,13 +299,13 @@ def tensor_core_ops(lib) -> dict[str, int]:
         if "Function : " in line:
             name = line.split("Function : ", 1)[1].strip()
             per_function[name] = 0
-        elif name and ("HMMA" in line or "HGMMA" in line):
+        elif name and any(op in line for op in TENSOR_CORE_OPS):
             per_function[name] += 1
     counts = {}
     for mode, parts in KERNEL_FUNCTIONS.items():
         # a template with float32 and bf16 instances: the mode's own
         shared = mode.removesuffix("_bf16") in ("dense_stack", "dense_layer",
-                                                "stencil", "stencil_bwd")
+                                                "stencil_bwd")
         counts[mode] = sum(
             n for fn, n in per_function.items()
             if any(p in fn for p in parts)
@@ -325,6 +339,8 @@ def output_errs(name, got, want):
         if w is not None:
             if g.shape != w.shape or not torch.isfinite(g).all():
                 fail(f"{name}: bad output {tuple(g.shape)}")
+            if not (w.is_floating_point() or w.is_complex()):
+                g, w = g.double(), w.double()   # integers: no wrap-around
             errs.append(norm_err(g.to(w.dtype), w))
     return errs
 
@@ -549,15 +565,25 @@ def phase_lowp_kernels(records):
     from misonet_tpu_torch.ops.kernels.dense_stack import (
         dense_stack, dense_stack_plain)
     from misonet_tpu_torch.ops.kernels.dense_stack_int8 import (
-        dense_stack_int8, dense_stack_int8_plain, quantize_rows)
+        dense_stack_int8, dense_stack_int8_plain, quantize_rows,
+        quantize_rows_packed)
     from misonet_tpu_torch.ops.kernels.stencil import stencil, stencil_plain
     from misonet_tpu_torch.ops.kernels.stencil_bwd import geometry
+    from misonet_tpu_torch.ops.kernels.tc_pack import pack_int8_rows
 
-    check_tensor_cores(records["dense_stack_bf16"])
+    def rows_plain(w, scale, mean, widths):
+        qw, corr, rq = quantize_rows(w, scale, mean)
+        return pack_int8_rows(qw, widths), corr, rq
+
+    for name in ("dense_stack_bf16", "stencil_bf16", "dense_stack_int8"):
+        check_tensor_cores(records[name])
     bf = torch.bfloat16
     rng = np.random.default_rng(SEED + 11)
-    glue = records["dense_stack_int8"]
-    glue.update(glue_ms=0.0, glue_launches=None, library_error=None)
+    rec8 = records["dense_stack_int8"]
+    rec8.update(library_error=None, launches_per_call=None)
+    print(json.dumps({"phase": "lowp-kernels",
+                      "earlier_pr_figures": EARLIER_FIGURES["int8_call"]}),
+          flush=True)
     for name, widths, n, n_fin, f, with_acc in DENSE_CASES:
         c = sum(widths)
         xs = [rand(rng, (B, w, T, f)).to(bf) for w in widths]
@@ -577,37 +603,69 @@ def phase_lowp_kernels(records):
                      phase="lowp-kernels", peak=PEAK_BF16)
         del xn
         lib, lib_err = int8_library(xs, w, scale, mean)
-        glue_ms = cuda_ms(lambda: quantize_rows(w, scale, mean))
-        if glue["glue_launches"] is None:
-            prof = profile_call(lambda: quantize_rows(w, scale, mean))
-            glue["glue_launches"] = prof["kernels"]
+        # the row kernel against its plain twin: the same rows, bit for bit
+        # (float64 sums of B * N * 9 * C products)
+        rows, rows_want = check_kernel(
+            f"quantize_rows {name}", quantize_rows_packed, rows_plain,
+            (w, scale, mean, widths), records["quantize_rows"],
+            2 * B * n * 9 * c, None, phase="lowp-kernels", peak=PEAK_FP64)
+        if not all(map(torch.equal, rows, rows_want)):
+            fail(f"quantize_rows {name}: the card's rows (qw, corr, rq) "
+                 "differ from quantize_rows + pack_int8_rows")
         got, want = check_kernel(
             f"dense_stack_int8 {name}", dense_stack_int8,
             dense_stack_int8_plain, (xs, acc, w, bias, scale, mean, n_fin),
-            glue, flops, lib, phase="lowp-kernels", peak=PEAK_INT8,
-            extra={"glue_ms": glue_ms, "library_error": lib_err}, reps=3)
-        glue["glue_ms"] += glue_ms
-        glue["library_error"] = glue["library_error"] or lib_err
-        # the kernel's own device time (the wrapper's time above includes
-        # the host-bound row quantization)
+            rec8, flops, lib, phase="lowp-kernels", peak=PEAK_INT8,
+            extra={"library_error": lib_err}, reps=3)
+        rec8["library_error"] = rec8["library_error"] or lib_err
+        # the row launches of one call; the kernels' own device time (the
+        # wrapper's time above includes its host work) and the kernels of
+        # one call
+        rows_before = quantize_rows_packed.launches
+        dense_stack_int8(xs, acc, w, bias, scale, mean, n_fin)
+        row_launches = quantize_rows_packed.launches - rows_before
         prof = profile_call(lambda: dense_stack_int8(xs, acc, w, bias, scale,
                                                      mean, n_fin))
-        dev_ms = prof["ms"]["dense_stack_int8"] + prof["ms"]["reduce_stats"]
-        glue["device_ms"] = glue.get("device_ms", 0.0) + dev_ms
+        ms = prof["ms"]
+        dev_ms = ms["dense_stack_int8"] + ms["int8_rows"] + ms["reduce_stats"]
+        # device times only from windows that kept all their device events
+        for key, v in (("device_ms", dev_ms),
+                       ("conv_device_ms", ms["dense_stack_int8"])):
+            total = rec8.get(key, 0.0)
+            rec8[key] = (None if total is None or prof["device_events_lost"]
+                         else total + v)
+        rec8["launches_per_call"] = max(rec8["launches_per_call"] or 0,
+                                        prof["kernels"])
         ulps = bf16_ulps(got[0], want[0])
         same = got[3] is None or torch.equal(got[3], want[3])
         print(json.dumps({"phase": "lowp-kernels", "case": f"int8 {name}",
-                          "kernel_device_ms": dev_ms, "y_max_ulps": ulps,
+                          "kernel_device_ms": dev_ms,
+                          "conv_device_ms": ms["dense_stack_int8"],
+                          "rows_device_ms": ms["int8_rows"],
+                          "launches_per_call": prof["kernels"],
+                          "device_events_lost": prof["device_events_lost"],
+                          "row_launches_per_call": row_launches,
+                          "padded_channels": sum(-(-c // 16) * 16
+                                                 for c in widths),
+                          "channels": c, "y_max_ulps": ulps,
                           "acc_out_identical": same}), flush=True)
         if ulps > 1 or not same:
             fail(f"dense_stack_int8 {name}: y {ulps} ulps apart, acc_out "
                  f"identical: {same}")
+        if row_launches != 1:
+            fail(f"dense_stack_int8 {name}: {row_launches} row quantization "
+                 "launches in one call, expected 1")
 
-    for name, mode, c, n, f_in in STENCIL_CASES:
+    # the main path's cases (recorded), then the enhancement nets' and the
+    # REVERB plan's narrow and wide shapes (reported only)
+    for name, mode, c, n, f_in, b, to_record in [
+            *(case + (B, True) for case in STENCIL_CASES),
+            *(case + (False,) for case in ENHANCE_STENCIL_CASES),
+            ("reverb enc0", "enc0", 16, 24, 257, 8, False)]:
         wshape = (c, n, 3, 3) if mode in ("up", "final") else (n, c, 3, 3)
         stats = ([None, None] if mode == "enc0" else
-                 [rand(rng, (B, c), 0.5, 1.5), rand(rng, (B, c), -0.5, 0.5)])
-        x = rand(rng, (B, c, T, f_in)).to(bf)
+                 [rand(rng, (b, c), 0.5, 1.5), rand(rng, (b, c), -0.5, 0.5)])
+        x = rand(rng, (b, c, T, f_in)).to(bf)
         wt = rand(rng, wshape, scale=1.0 / np.sqrt(9 * c)).to(bf)
         bias = rand(rng, (n,), scale=0.1)
         xn = normalized([x], *stats).to(bf)
@@ -615,10 +673,11 @@ def phase_lowp_kernels(records):
         conv = (F.conv_transpose2d if mode in ("up", "final") else F.conv2d)
         check_kernel(f"stencil bf16 {name}", stencil, stencil_plain,
                      [x, wt, bias, *stats, mode], records["stencil_bf16"],
-                     2 * conv_macs(mode, B, c, n, T, f_in),
+                     2 * conv_macs(mode, b, c, n, T, f_in),
                      lambda: conv(xn, wt, bias.to(bf), stride=stride,
                                   padding=padding),
-                     phase="lowp-kernels", peak=PEAK_BF16)
+                     phase="lowp-kernels", peak=PEAK_BF16,
+                     to_record=to_record)
 
 
 def bwd_reference(g, xs, w, scale, mean, mode, need_dx=True):
@@ -801,7 +860,25 @@ def phase_forward(model, cfg, mode="float32", records=None):
         prof = profile_call(lambda: model(x))
     print(json.dumps({"phase": "forward", "precision": mode,
                       "profile": "one fused forward", **prof}), flush=True)
+    if mode in EARLIER_FIGURES:
+        print(json.dumps({"phase": "forward", "precision": mode,
+                          "earlier_pr_figures": EARLIER_FIGURES[mode]}),
+              flush=True)
     return fused
+
+
+# figures of the versions that the tensor-core stencil and the int8 row
+# kernel replaced, from earlier chip runs recorded in PERF.md §5-6, printed
+# on lines of their own beside this run's numbers: none is measured here
+EARLIER_FIGURES = {
+    "bfloat16": {"kernels_per_forward": 1447,
+                 "version": "bf16 stencil on the FMA loop (PERF.md §5)"},
+    "int8": {"kernels_per_forward": 3246,
+             "version": "weight rows quantized in PyTorch (PERF.md §5)"},
+    "int8_call": {"launches_per_call": 34,
+                  "version": "weight rows quantized in PyTorch "
+                             "(PERF.md §6)"},
+}
 
 
 @contextlib.contextmanager
@@ -829,17 +906,21 @@ def phase_forward_int8(model, cfg, bf16_out, records):
     or twice that composition's own movement under the PERTURB probe; its
     distance to the bf16 forward reported."""
     from misonet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from misonet_tpu_torch.ops.kernels.dense_stack_int8 import (
+        quantize_rows_packed)
 
     x = forward_input()
     model.cfg = dataclasses.replace(cfg, quant_int8=True)
     with torch.inference_mode():
         reset_launch_counts()
+        quantize_rows_packed.launches = 0
         fused = model(x)
         torch.cuda.synchronize()
         counts = launch_counts()
-        if counts != expect("int8", 50, 10):
-            fail(f"int8 forward launched {counts}, expected "
-                 f"{expect('int8', 50, 10)}")
+        rows = quantize_rows_packed.launches
+        if counts != expect("int8", 50, 10) or rows != 50:
+            fail(f"int8 forward launched {counts} and {rows} row "
+                 f"quantizations, expected {expect('int8', 50, 10)} and 50")
         t_fused = cuda_ms(lambda: model(x), reps=5)
         with plain_kernels():
             reset_launch_counts()
@@ -856,7 +937,9 @@ def phase_forward_int8(model, cfg, bf16_out, records):
     err, rel = norm_err(torch.view_as_real(fused), torch.view_as_real(plain))
     bound = max(INT8_FORWARD_BOUND, 2 * sens)
     print(json.dumps({"phase": "forward", "precision": "int8",
-                      "launches_per_forward": counts, "max_abs_err": err,
+                      "launches_per_forward": {**counts,
+                                               "quantize_rows": rows},
+                      "max_abs_err": err,
                       "max_norm_err": rel, "bound": bound,
                       "plain_sensitivity": sens, "perturbation": PERTURB,
                       **agreement(fused, plain),
@@ -866,12 +949,16 @@ def phase_forward_int8(model, cfg, bf16_out, records):
         fail(f"int8 forward: kernels vs plain composition normalized error "
              f"{rel} above {bound}")
     records["dense_stack_int8"]["launches"] = counts["dense_stack_int8"]
+    records["quantize_rows"]["launches"] = rows
     model.cfg = dataclasses.replace(cfg, quant_int8=True)
     with torch.inference_mode():
         prof = profile_call(lambda: model(x))
     model.cfg = cfg
     print(json.dumps({"phase": "forward", "precision": "int8",
                       "profile": "one fused forward", **prof}), flush=True)
+    print(json.dumps({"phase": "forward", "precision": "int8",
+                      "earlier_pr_figures": EARLIER_FIGURES["int8"]}),
+          flush=True)
 
 
 def synth_request(rng, seconds, fs=8000, mics=6):
@@ -988,27 +1075,84 @@ def step_ms(step, state, batch, n):
 RANGES = ("stft", "istft", "mvdr.scm", "mvdr.power_iteration")
 
 
+# the host-side CUDA calls that put work on the device (kernel launches,
+# copies, fills), as torch.profiler records them
+LAUNCH_CALLS = ("LaunchKernel", "Memcpy", "Memset")
+# the marker kernels that open a window (torch.cuda._sleep's), launched in
+# a range of this name and left out of every count
+MARKER, MARKER_RANGE, MARKERS = "spin_kernel", "profile_markers", 3
+PROFILE_PAUSE_S = 0.05  # host pause between the markers and the call
+PROFILE_TRIES = 3
+
+
 def profile_call(fn):
     """torch.profiler over one warm call of ``fn``: device time by kernel
     group and inside each of the port's ranges (the host time spent in
-    them beside it), device busy share of the call's wall time."""
+    them beside it), device busy share of the call's wall time.
+
+    On the card's machine the profiler's device timestamps stray from the
+    host's as a run goes on (kernels dated before their own launch), and
+    it drops device events: a window's first ones, late in a run whole
+    short windows.  So ``kernels`` counts the host's records of the call's
+    launches, copies and fills (host clock, none dropped), and
+    ``device_events_lost`` those of them whose device event is missing.
+    A window opens with a warm-up step (discarded), then MARKERS marker
+    kernels (to be lost in place of the call's) and a PROFILE_PAUSE_S
+    host pause before the call; one that lost device events of the call
+    is taken again, up to PROFILE_TRIES windows, and the last is reported
+    as it is: its device times are then short by the lost events."""
+    for tries in range(1, PROFILE_TRIES + 1):
+        out = profile_window(fn)
+        if not out["device_events_lost"]:
+            break
+    return {**out, "windows": tries}
+
+
+def profile_window(fn):
+    """profile_call's one window."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import (ProfilerActivity, profile, record_function,
+                                schedule)
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    groups = {"dense_stack": 0.0, "dense_stack_int8": 0.0, "stencil": 0.0,
-              "stencil_bwd": 0.0, "hermitian_solve": 0.0,
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for step in range(2):
+            if step:
+                with record_function(MARKER_RANGE):
+                    for _ in range(MARKERS):
+                        torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
+                time.sleep(PROFILE_PAUSE_S)
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            prof.step()
+    # the call's host records of device work, and the correlation ids of
+    # the device events kept (each carries its host call's)
+    events = prof.profiler.kineto_results.events()
+    marks = [(ev.start_ns(), ev.start_ns() + ev.duration_ns())
+             for ev in events if ev.name() == MARKER_RANGE
+             and ev.device_type() == DeviceType.CPU]
+    launched, seen = {}, {}
+    for ev in events:
+        if ev.device_type() == DeviceType.CUDA:
+            seen[ev.correlation_id()] = ev.start_ns()
+        elif (any(c in ev.name() for c in LAUNCH_CALLS)
+              and not any(a <= ev.start_ns() <= b for a, b in marks)):
+            launched[ev.correlation_id()] = ev.start_ns()
+    # device start - host launch, in the profiler's clock (< 0: the device
+    # timestamps stray)
+    gaps = [(seen[c] - t) / 1e3 for c, t in launched.items() if c in seen]
+    groups = {"dense_stack": 0.0, "dense_stack_int8": 0.0, "int8_rows": 0.0,
+              "stencil": 0.0, "stencil_bwd": 0.0, "hermitian_solve": 0.0,
               "reduce_stats": 0.0, "other": 0.0}
     calls = dict.fromkeys(groups, 0)
     other = {}
     ranges = {}
-    kernels = 0
+    device_events = 0
     for e in prof.key_averages():
         if (e.key in RANGES
                 and getattr(e, "device_type", None) == DeviceType.CPU):
@@ -1025,16 +1169,20 @@ def profile_call(fn):
                 or getattr(e, "is_user_annotation", False)
                 or e.key.startswith("Optimizer.")):
             continue
+        if MARKER in e.key:
+            continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
-        kernels += e.count
+        device_events += e.count
         name = e.key
-        if "dense_stack_int8_kernel" in name:
+        if "dense_stack_int8_tc_kernel" in name:
             group = "dense_stack_int8"
+        elif "quantize_rows_kernel" in name:
+            group = "int8_rows"
         elif "dense_stack_kernel" in name or "dense_stack_tc_kernel" in name:
             group = "dense_stack"
-        elif "stencil_kernel" in name:
+        elif "stencil_kernel" in name or "stencil_tc_kernel" in name:
             group = "stencil"
         elif ("dgrad_kernel" in name or "dgrad_tc_kernel" in name
               or "wgrad_" in name):
@@ -1053,7 +1201,9 @@ def profile_call(fn):
     return {"wall_ms": wall, "device_busy_ms": busy,
             "busy_share": busy / wall if wall else None,
             "idle_share": 1 - busy / wall if wall else None,
-            "kernels": kernels,
+            "kernels": len(launched), "device_events": device_events,
+            "device_events_lost": len(launched.keys() - seen.keys()),
+            "launch_to_start_us_min": min(gaps, default=None),
             "ms": {k: v / 1e3 for k, v in groups.items()},
             "calls": calls,
             "share": {k: v / 1e3 / busy if busy else None
@@ -1315,11 +1465,15 @@ def phase_solve(records):
         # wrapper's host time; the profiler gives the kernel's own
         prof = profile_call(lambda: [hermitian_solve(r, d) for _ in range(10)])
         dev_ms = prof["ms"]["hermitian_solve"] / 10
+        lost = prof["device_events_lost"]
         print(json.dumps({"phase": "solve-kernel", "case": f"n={n}",
-                          "kernel_device_ms": dev_ms}), flush=True)
+                          "kernel_device_ms": dev_ms,
+                          "device_events_lost": lost}), flush=True)
         if n != SOLVE_BATCHES[-1]:
+            # device time only from windows that kept all their events
+            total = records["hermitian_solve"].get("device_ms", 0.0)
             records["hermitian_solve"]["device_ms"] = (
-                records["hermitian_solve"].get("device_ms", 0.0) + dev_ms)
+                None if total is None or lost else total + dev_ms)
 
 
 @contextlib.contextmanager
@@ -1991,6 +2145,8 @@ def main() -> int:
              "stencil"),
             ("dense_stack_int8", "misonet_tpu/ops/pallas/dense_stack.py:357",
              None),
+            ("quantize_rows", "misonet_tpu/ops/pallas/dense_stack.py:357",
+             "dense_stack_int8"),
             ("stencil_bwd_bf16", "misonet_tpu/ops/pallas/stencil_bwd.py:300",
              "stencil_bwd"),
             ("dense_layer", "misonet_tpu/ops/pallas/dense_flat.py:240",
@@ -2084,8 +2240,8 @@ def main() -> int:
     # 6, 8, 11, 17 or 20; launches are those of the train path's run (phase
     # 7, and phase 18 for stencil_bwd_bf16), of the cascade's requests
     # (phase 9) for hermitian_solve, of the bf16 and int8 forwards (phases
-    # 12-13) for their forward modes, and of phase 20's driven run for
-    # dense_layer
+    # 12-13) for their forward modes and quantize_rows, and of phase 20's
+    # driven run for dense_layer
     for r in records.values():
         r["bound_by"] = ("operations" if r.pop("ops_ms") >= r.pop("bytes_ms")
                          else "bytes")

@@ -272,41 +272,17 @@ dense_stack_tc_kernel(const Sources<bf16> src, int C,
                       bf16* __restrict__ acc_out, float* __restrict__ part,
                       int Tn, int F, int N, int n_fin, bool fuse_elu,
                       bool want_stats) {
-  using G = tc::Geo<tc::M_SAME>;
   constexpr int BN = 8 * NT8;
   extern __shared__ __align__(16) unsigned char tc_smem[];
   const int tw = tc::tile_w(F);
-  const int th = tc::GM_POS / tw;
   const int ntc = (F + tw - 1) / tw;
-  const int ntiles = ((Tn + th - 1) / th) * ntc;
+  const int tile = blockIdx.x;
+  const int t0 = (tile / ntc) * (tc::GM_POS / tw);
+  const int f0 = (tile % ntc) * tw;
   const int o0 = blockIdx.y * BN;
   const int b = blockIdx.z;
   const int TF = Tn * F;
-  const int sw = G::width(tw);
-  const int n_win = (th + 2) * sw;
-  unsigned char* ws = tc_smem;
-  unsigned char* win = tc_smem + tc::GM_UNITS * tc::unit_bytes(BN);
-  for (int i = threadIdx.x; i < tc::WIN_ROW / 16; i += tc::GM_THREADS)
-    reinterpret_cast<uint4*>(win + n_win * tc::WIN_ROW)[i] =
-        make_uint4(0, 0, 0, 0);
-  const uint32_t ws_s = tc::smem_addr(ws);
-  const uint32_t win_s = tc::smem_addr(win);
-  const uint32_t zero_s = win_s + n_win * tc::WIN_ROW;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  // this lane's A row: position m of the tile
-  const int m = warp * 16 + (lane & 15);
-  const int mr = m / tw;
-  const int tile = blockIdx.x;
-  const int t0 = (tile / ntc) * th;
-  const int f0 = (tile % ntc) * tw;
-  const int lo = G::lo(f0);
-  const int mf = f0 + m - mr * tw;
-  float acc[NT8][4];
-#pragma unroll
-  for (int j = 0; j < NT8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float acc[NT8][4] = {};
 
   int coff = 0;  // first channel of source s in the concatenation
   int goff = 0;  // its first group in the packed weights
@@ -316,41 +292,22 @@ dense_stack_tc_kernel(const Sources<bf16> src, int C,
     const int cs = src.c[s];
     for (int cb = 0; cb < cs; cb += 8 * tc::GMAX) {
       const int rk = min(8 * tc::GMAX, cs - cb);
-      const int groups = (rk + 7) / 8;
-      __syncthreads();  // the previous chunk is consumed
-      tc::stage_weights_tc<BN>(ws, w, N, o0, goff + cb / 8, groups);
       const int c_first = coff + cb;
       const bf16* xp = xsrc + ((size_t)b * cs + cb) * TF;
-      tc::stage_window<tc::GM_THREADS>(
-          win, tc::WIN_ROW, th + 2, sw, t0, lo, Tn, F, groups, rk,
-          [&](int k, int p) {
+      tc::gather_chunk<tc::Geo<tc::M_SAME>, NT8, bf16>(
+          acc, tc_smem, tw, t0, f0, w, N, o0, goff + cb / 8, (rk + 7) / 8,
+          rk, Tn, F, [&](int k, int p) {
             const int ch = b * C + c_first + k;
             return (tc::bf16_at(xp + (size_t)k * TF + p) - __ldg(mean + ch)) *
                    __ldg(scale + ch);
           });
-      tc::cp_async_wait_all();
-      __syncthreads();
-      const int n_units = groups * 9;
-      tc::gather_mma<NT8>(acc, n_units, ws_s, [&](int u) -> uint32_t {
-        if (u >= n_units) return zero_s;
-        const int g = u / 9;
-        const int tap = u - 9 * g;
-        const int kt = tap / 3;
-        const int row = mr + 1 + G::TS * (kt - 1);
-        const int col = G::col(mf, tap - 3 * kt, lo);
-        return win_s + (row * sw + col) * tc::WIN_ROW + g * tc::GROUP_BYTES;
-      });
     }
   }
 
   // epilogue: finalize rows < n_fin, pass the rest on as partials
-  float* zt = reinterpret_cast<float*>(ws);
-  __syncthreads();  // every warp is done with the weights
-  tc::stage_acc<NT8>(zt, acc);
-  __syncthreads();
-  tc::finish_tile<BN>(
-      zt, tw, want_stats && o0 < n_fin, n_fin - o0, part,
-      (size_t)b * n_fin + o0, (size_t)gridDim.z * n_fin, tile, ntiles,
+  tc::finish_gather<NT8>(
+      tc_smem, acc, tw, want_stats && o0 < n_fin, n_fin - o0, part,
+      (size_t)b * n_fin + o0, (size_t)gridDim.z * n_fin, tile, gridDim.x,
       [&](int o, int pr, int pc, float z) {
         const int n = o0 + o;
         const int t = t0 + pr;
@@ -378,10 +335,8 @@ cudaError_t launch_dense_tc(const Sources<bf16>& src, int C,
                             int n_fin, bool fuse_elu, bool want_stats,
                             cudaStream_t st) {
   constexpr int BN = 8 * NT8;
-  const int tw = tc::tile_w(F);
-  const int n_win = (tc::GM_POS / tw + 2) * tc::Geo<tc::M_SAME>::width(tw);
   const size_t smem =
-      tc::GM_UNITS * tc::unit_bytes(BN) + (n_win + 1) * tc::WIN_ROW;
+      tc::gather_smem<tc::Geo<tc::M_SAME>>(BN, tc::tile_w(F));
   cudaError_t e = cudaFuncSetAttribute(
       dense_stack_tc_kernel<NT8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

@@ -605,77 +605,35 @@ dgrad_tc_kernel(const bf16* __restrict__ g, int N, Sources<bf16> src,
                 const float* __restrict__ mean, const bf16* __restrict__ w,
                 bf16* __restrict__ dx0, bf16* __restrict__ dx1,
                 float* __restrict__ part, int T, int Fin, int Fo) {
-  using G = tc::Geo<kDgradMap<MODE>>;
   constexpr int BN = 8 * NT8;
   extern __shared__ __align__(16) unsigned char tc_smem[];
   const int C = src.C;
   const int tw = tc::tile_w(Fin);
-  const int th = tc::GM_POS / tw;
   const int ntc = (Fin + tw - 1) / tw;
-  const int ntiles = ((T + th - 1) / th) * ntc;
+  const int tile = blockIdx.x;
+  const int t0 = (tile / ntc) * (tc::GM_POS / tw);
+  const int f0 = (tile % ntc) * tw;
   const int o0 = blockIdx.y * BN;
   const int b = blockIdx.z;
   const int TFi = T * Fin;
   const int TFo = T * Fo;
-  const int sw = G::width(tw);
-  const int n_win = (th + 2) * sw;
-  unsigned char* ws = tc_smem;
-  unsigned char* win = tc_smem + tc::GM_UNITS * tc::unit_bytes(BN);
-  for (int i = threadIdx.x; i < tc::WIN_ROW / 16; i += tc::GM_THREADS)
-    reinterpret_cast<uint4*>(win + n_win * tc::WIN_ROW)[i] =
-        make_uint4(0, 0, 0, 0);
-  const uint32_t ws_s = tc::smem_addr(ws);
-  const uint32_t win_s = tc::smem_addr(win);
-  const uint32_t zero_s = win_s + n_win * tc::WIN_ROW;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int m = warp * 16 + (lane & 15);
-  const int mr = m / tw;
-  const int tile = blockIdx.x;
-  const int t0 = (tile / ntc) * th;
-  const int f0 = (tile % ntc) * tw;
-  const int lo = G::lo(f0);
-  const int mf = f0 + m - mr * tw;
-  float acc[NT8][4];
-#pragma unroll
-  for (int j = 0; j < NT8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float acc[NT8][4] = {};
 
   for (int nb = 0; nb < N; nb += 8 * tc::GMAX) {
     const int rk = min(8 * tc::GMAX, N - nb);
-    const int groups = (rk + 7) / 8;
-    __syncthreads();  // the previous chunk is consumed
-    // w: the weight packed with output c and reduced n (tc_pack.py)
-    tc::stage_weights_tc<BN>(ws, w, C, o0, nb / 8, groups);
     const bf16* gp = g + ((size_t)b * N + nb) * TFo;
-    tc::stage_window<tc::GM_THREADS>(
-        win, tc::WIN_ROW, th + 2, sw, t0, lo, T, Fo, groups, rk,
+    // w: the weight packed with output c and reduced n (tc_pack.py); a tap
+    // of the other parity (DOWN) reads the zero row
+    tc::gather_chunk<tc::Geo<kDgradMap<MODE>>, NT8, bf16>(
+        acc, tc_smem, tw, t0, f0, w, C, o0, nb / 8, (rk + 7) / 8, rk, T, Fo,
         [&](int k, int p) { return tc::bf16_at(gp + (size_t)k * TFo + p); });
-    tc::cp_async_wait_all();
-    __syncthreads();
-    const int n_units = groups * 9;
-    tc::gather_mma<NT8>(acc, n_units, ws_s, [&](int u) -> uint32_t {
-      if (u >= n_units) return zero_s;
-      const int gr = u / 9;
-      const int tap = u - 9 * gr;
-      const int kt = tap / 3;
-      const int col = G::col(mf, tap - 3 * kt, lo);
-      if (col < 0) return zero_s;  // a tap of the other parity
-      const int row = mr + 1 + G::TS * (kt - 1);
-      return win_s + (row * sw + col) * tc::WIN_ROW + gr * tc::GROUP_BYTES;
-    });
   }
 
   // epilogue: dx = bf16(scale G), the partials of sum G and sum G (x -
   // mean)
-  float* zt = reinterpret_cast<float*>(ws);
-  __syncthreads();  // every warp is done with the weights
-  tc::stage_acc<NT8>(zt, acc);
-  __syncthreads();
-  tc::finish_tile<BN>(
-      zt, tw, part != nullptr, C - o0, part, (size_t)b * C + o0,
-      (size_t)gridDim.z * C, tile, ntiles,
+  tc::finish_gather<NT8>(
+      tc_smem, acc, tw, part != nullptr, C - o0, part, (size_t)b * C + o0,
+      (size_t)gridDim.z * C, tile, gridDim.x,
       [&](int o, int pr, int pc, float gv) {
         const int c = o0 + o;
         const int t = t0 + pr;
@@ -698,11 +656,8 @@ cudaError_t launch_dgrad_tc(const bf16* g, int N, Sources<bf16> src,
                             const bf16* w, bf16* dx0, bf16* dx1, float* dpart,
                             int B, int T, int Fin, int Fo, cudaStream_t st) {
   constexpr int BN = 8 * NT8;
-  const int tw = tc::tile_w(Fin);
-  const int n_win =
-      (tc::GM_POS / tw + 2) * tc::Geo<kDgradMap<MODE>>::width(tw);
   const size_t smem =
-      tc::GM_UNITS * tc::unit_bytes(BN) + (n_win + 1) * tc::WIN_ROW;
+      tc::gather_smem<tc::Geo<kDgradMap<MODE>>>(BN, tc::tile_w(Fin));
   cudaError_t e = cudaFuncSetAttribute(
       dgrad_tc_kernel<MODE, NT8>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

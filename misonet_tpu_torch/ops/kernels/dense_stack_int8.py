@@ -19,12 +19,17 @@ model; decode only).  Same arguments and results as the bfloat16 mode of
   statistics from the float32 ``y``, ``y`` and ``acc_out`` bfloat16).
 
 The rows depend on ``mean * scale`` and so on the batch element; they are
-built here in PyTorch (:func:`quantize_rows`), once per call, as the JAX
-package builds them in XLA outside its ``pallas_call``.  CUDA source:
-``misonet_tpu_torch/csrc/dense_stack_int8.cu`` (what bounds it on the H100
-and how the design answers that is written at the top of that file).
+built once per call, as the JAX package builds them in XLA outside its
+``pallas_call``: on the card by one kernel launch
+(:func:`quantize_rows_packed`, ``quantize_rows_kernel``), whose plain twin
+is :func:`quantize_rows` (+ ``tc_pack.pack_int8_rows``).  Both take beta
+and the coefficients as float64 sums of the float32 products, rounded once
+to float32, so the card's rows equal the plain version's.  CUDA source:
+``misonet_tpu_torch/csrc/dense_stack_int8.cu`` (the row kernel and the
+int8 tensor-core kernel; what bounds them on the H100 and how the design
+answers that is written at the top of that file).
 
-``dense_stack_int8`` launches the kernel for CUDA tensors (raising on any
+``dense_stack_int8`` launches the kernels for CUDA tensors (raising on any
 shape or dtype it does not take, and on source widths that are not
 multiples of 4) and runs ``dense_stack_int8_plain`` for CPU tensors.
 """
@@ -68,19 +73,28 @@ def quantize_rows(w_stack, scale, mean):
     w_stack float32 [N, C, 3, 3], scale / mean float32 [B, C] ->
     (qw int8 [B, N, 9, C] (tap-major, channels fastest),
      corr int32 [B, N, 16] (16 * the coefficients' sum for each edge class),
-     rq float32 [B, N] (the row scale over 16))."""
+     rq float32 [B, N] (the row scale over 16)).
+
+    beta and the coefficients are float64 sums of the float32 products
+    ``w * (mean * scale)`` (exact in float64), rounded once to float32, as
+    the card's row kernel takes them: sums in another order then differ
+    only where a float64 value sits on a float32 rounding tie."""
     n, c = w_stack.shape[:2]
     b = scale.shape[0]
-    beta = -torch.einsum("ncij,bc->bnij", w_stack, mean * scale)
+    beta = -torch.einsum("ncij,bc->bnij", w_stack.double(),
+                         (mean * scale).double())
     coef = torch.stack([
         beta.sum(dim=(2, 3)),
         -beta[:, :, 0, :].sum(-1), -beta[:, :, 2, :].sum(-1),
         -beta[:, :, :, 0].sum(-1), -beta[:, :, :, 2].sum(-1),
         beta[:, :, 0, 0], beta[:, :, 0, 2], beta[:, :, 2, 0], beta[:, :, 2, 2],
-    ], dim=2)                                              # [B, N, 9]
+    ], dim=2).float()                                      # [B, N, 9]
     w_rows = w_stack.permute(0, 2, 3, 1).reshape(n, 9 * c)
     row_max = torch.maximum(w_rows.abs().amax(dim=1), coef.abs().amax(dim=2))
-    rs = torch.clamp(row_max, min=1e-20) / 127.0          # [B, N]
+    # a divisor on the tensors' device: PyTorch's CUDA division by a Python
+    # number multiplies by its reciprocal, one ulp off the quotient the row
+    # kernel (and the CPU) take
+    rs = torch.clamp(row_max, min=1e-20) / row_max.new_tensor(127.0)
 
     def q(v):
         return torch.clamp(torch.round(v / rs[..., None]), -127.0, 127.0)
@@ -89,6 +103,52 @@ def quantize_rows(w_stack, scale, mean):
     qc = q(coef).to(torch.int32)
     corr = (qc[:, :, None, :] * _fields(qc.device)).sum(-1) * int(QS)
     return qw, corr.to(torch.int32).contiguous(), rs / QS
+
+
+def quantize_rows_packed(w_stack, scale, mean, widths):
+    """The rows of one int8 call in the tensor-core kernel's layout:
+    (qw int8 [B, G16, 9, N, 16] (tc_pack.pack_int8_rows), corr int32
+    [B, N, 16], rq float32 [B, N]): one launch of
+    ``quantize_rows_kernel``, CUDA tensors only (its plain twin is
+    :func:`quantize_rows` + ``tc_pack.pack_int8_rows``).  Arguments as
+    :func:`quantize_rows`; ``widths`` the 1 or 2 source widths."""
+    widths = [int(c) for c in widths]
+    device = w_stack.device
+    if device.type != "cuda":
+        raise ValueError(f"quantize_rows_packed: unsupported device {device}")
+    if not 1 <= len(widths) <= 2:
+        raise ValueError("quantize_rows_packed takes 1 or 2 source widths, "
+                         f"got {widths}")
+    n, c_tot = int(w_stack.shape[0]), sum(widths)
+    b = int(scale.shape[0])
+
+    def check(name, t_, shape):
+        check_tensor("quantize_rows_packed", name, t_, shape, device)
+
+    check("w_stack", w_stack, (n, c_tot, 3, 3))
+    check("scale", scale, (b, c_tot))
+    check("mean", mean, (b, c_tot))
+    groups = sum(-(-c // 16) for c in widths)
+    qw = torch.empty((b, groups, 9, n, 16), device=device, dtype=torch.int8)
+    corr = torch.empty((b, n, 16), device=device, dtype=torch.int32)
+    rq = torch.empty((b, n), device=device)
+    with torch.cuda.device(device):
+        err = library().misonet_quantize_rows_int8(
+            w_stack.data_ptr(), scale.data_ptr(), mean.data_ptr(), widths[0],
+            widths[1] if len(widths) == 2 else 0, b, n, qw.data_ptr(),
+            corr.data_ptr(), rq.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err:
+        raise RuntimeError(
+            f"quantize_rows_kernel launch failed: CUDA error {err}")
+    quantize_rows_packed.launches += 1
+    return qw, corr, rq
+
+
+# launches of the row kernel (part of each dense_stack_int8 call, so not
+# one of launch_counts()'s kernel modes)
+quantize_rows_packed.launches = 0
 
 
 def _edge_class(t: int, f: int, device) -> torch.Tensor:
@@ -126,7 +186,7 @@ def dense_stack_int8(xs, acc_in, w_stack, bias, scale, mean, n_fin: int):
     """One stacked DenseBlock call in the int8 decode mode.
 
     xs        1 or 2 raw bfloat16 source tensors [B, c_i, T, F], c_i a
-              multiple of 4
+              multiple of 4 (the kernel pads each to 16 channels)
     acc_in    bfloat16 [B, N, T, F] partial pre-activations, or None
     w_stack   float32 [N, sum(c_i), 3, 3] stacked kernels
     bias      float32 [n_fin]; scale, mean float32 [B, sum(c_i)]
@@ -165,9 +225,9 @@ def dense_stack_int8(xs, acc_in, w_stack, bias, scale, mean, n_fin: int):
     if acc_in is not None:
         check("acc_in", acc_in, (b, n, t, f), torch.bfloat16)
 
-    qw, corr, rq = quantize_rows(w_stack, scale, mean)
+    qw, corr, rq = quantize_rows_packed(w_stack, scale, mean, widths)
     lib = library()
-    ntiles = -(-(t * f) // lib.misonet_pos_tile())
+    ntiles = lib.misonet_tc_pos_tiles(t, f)
     y = torch.empty((b, n_fin, t, f), device=device, dtype=torch.bfloat16)
     acc_out = (torch.empty((b, n - n_fin, t, f), device=device,
                            dtype=torch.bfloat16) if n > n_fin else None)
@@ -204,6 +264,10 @@ def library() -> ctypes.CDLL:
         _I, _I, _I, _I, _I, _P,
     ]
     lib.misonet_dense_stack_int8.restype = _I
-    lib.misonet_pos_tile.argtypes = []
-    lib.misonet_pos_tile.restype = _I
+    lib.misonet_quantize_rows_int8.argtypes = [
+        _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+    ]
+    lib.misonet_quantize_rows_int8.restype = _I
+    lib.misonet_tc_pos_tiles.argtypes = [_I, _I]
+    lib.misonet_tc_pos_tiles.restype = _I
     return lib

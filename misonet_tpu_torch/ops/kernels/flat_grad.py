@@ -138,7 +138,10 @@ def stencil_ad(x, w, bias, scale, mean, mode: str):
     """Differentiable :func:`stencil` (same arguments and results; ``w`` may
     be float32 for a bfloat16 ``x``)."""
     if not _records(x, w, bias, scale, mean):
-        return stencil(x, w.to(x.dtype), bias, scale, mean, mode)
+        # the parameter itself: the wrapper rounds and packs it once per
+        # parameter version (tc_pack.packed); a cast made here under
+        # inference mode would be a new tensor, packed again, every call
+        return stencil(x, w, bias, scale, mean, mode)
     out = StencilFn.apply(mode, x, w, bias, scale, mean)
     return out if mode in _ACT else (out, None, None)
 

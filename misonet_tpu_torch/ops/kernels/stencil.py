@@ -15,13 +15,20 @@ instances, selected by ``mode``:
 
 Conv weights are ``[N, C, 3, 3]`` (Conv2d), transpose weights
 ``[C, N, 3, 3]`` (ConvTranspose2d); time padding is 1 and frequency padding
-0 in all modes.  CUDA source: ``misonet_tpu_torch/csrc/stencil.cu``.
+0 in all modes.  CUDA source: ``misonet_tpu_torch/csrc/stencil.cu``: the
+float32 mode on CUDA-core FMAs (``stencil_kernel``), the bfloat16 mode on
+the tensor cores (``stencil_tc_kernel``, weights packed by
+``tc_pack.packed``, cached per weight tensor and version).
 
 The dtype mode follows ``x``: float32 throughout, or ``x``, ``w`` and ``y``
 bfloat16 with ``bias``, ``scale``, ``mean`` and the sums float32, rounded
 where the TPU kernel rounds (the normalized input and the weights are
 bfloat16, the sums run in float32, the statistics come from the float32
-output before its bfloat16 store).
+output before its bfloat16 store).  In the bfloat16 mode ``w`` may also be
+the float32 parameter: it is rounded to bfloat16 where it is packed (on
+the card, once per parameter version, so a model serving under
+``torch.inference_mode`` casts and packs nothing per call) or before the
+plain version's conv.
 
 ``stencil`` launches the kernel for CUDA tensors (raising on anything it
 does not take) and runs ``stencil_plain`` for CPU tensors.  It returns
@@ -39,6 +46,7 @@ import torch.nn.functional as F
 
 from misonet_tpu_torch.ops.kernels import build
 from misonet_tpu_torch.ops.kernels.dense_stack import DTYPES, check_tensor
+from misonet_tpu_torch.ops.kernels.tc_pack import packed
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -66,7 +74,7 @@ def stencil_plain(x, w, bias, scale, mean, mode: str):
     if scale is not None:
         x = ((x.float() - mean[:, :, None, None])
              * scale[:, :, None, None]).to(dtype)
-    x, w = x.float(), w.float()
+    x, w = x.float(), w.to(dtype).float()
     stride = (1, 2) if mode in ("down", "up") else (1, 1)
     if mode in _TRANSPOSE:
         y = F.conv_transpose2d(x, w, bias, stride=stride, padding=(1, 0))
@@ -83,7 +91,7 @@ def stencil(x, w, bias, scale, mean, mode: str):
 
     x      [B, C, T, F_in] raw input
     w      [N, C, 3, 3] (conv modes) or [C, N, 3, 3] (transpose modes), of
-           x's dtype
+           x's dtype (or float32 for a bfloat16 x)
     bias   [N] float32
     scale  [B, C] 1/sigma and mean [B, C] of the input; both None for
            ``"enc0"`` (identity), required otherwise
@@ -113,17 +121,22 @@ def stencil(x, w, bias, scale, mean, mode: str):
     def check(name, t_, shape, dt=dtype):
         check_tensor("stencil", name, t_, shape, device, dt)
 
+    bf16 = dtype == torch.bfloat16
     check("x", x, (b, c, t, f_in))
-    check("w", w, (c, n, 3, 3) if mode in _TRANSPOSE else (n, c, 3, 3))
+    check("w", w, (c, n, 3, 3) if mode in _TRANSPOSE else (n, c, 3, 3),
+          torch.float32 if bf16 and w.dtype == torch.float32 else dtype)
     check("bias", bias, (n,), torch.float32)
     if scale is not None:
         check("scale", scale, (b, c), torch.float32)
         check("mean", mean, (b, c), torch.float32)
 
     lib = library()
-    bf16 = dtype == torch.bfloat16
-    entry = lib.misonet_stencil_bf16 if bf16 else lib.misonet_stencil
-    ntiles = lib.misonet_stencil_tiles(MODES[mode], t, f_in, f_out)
+    if bf16:
+        entry, tiles = lib.misonet_stencil_bf16, lib.misonet_stencil_tc_tiles
+        w = packed(w, (c,), transpose=mode in _TRANSPOSE, dtype=dtype)
+    else:
+        entry, tiles = lib.misonet_stencil, lib.misonet_stencil_tiles
+    ntiles = tiles(MODES[mode], t, f_in, f_out)
     y = torch.empty((b, n, t, f_out), device=device, dtype=dtype)
     act = mode in _ACT
     part = torch.empty((2, b, n, ntiles), device=device) if act else None
@@ -160,6 +173,7 @@ def library() -> ctypes.CDLL:
             _I, _I, _I, _I, _I, _I, _P,
         ]
         entry.restype = _I
-    lib.misonet_stencil_tiles.argtypes = [_I, _I, _I, _I]
-    lib.misonet_stencil_tiles.restype = _I
+    for tiles in (lib.misonet_stencil_tiles, lib.misonet_stencil_tc_tiles):
+        tiles.argtypes = [_I, _I, _I, _I]
+        tiles.restype = _I
     return lib

@@ -427,6 +427,13 @@ def test_dense_stack_int8_refuses_what_it_does_not_take(cuda):
     ("enc0", 12, 24, 129, 37), ("down", 24, 32, 127, 37),
     ("up", 64, 24, 63, 37), ("final", 48, 4, 127, 37),
     ("up", 5, 33, 1, 3), ("down", 3, 40, 5, 2),
+    # the tensor-core kernel's edges: the REVERB plan's enc0 (F_in = 257,
+    # 8 mics), the enhancement nets' enc0 (C = 16, 20) and MISO3's final
+    # N = 2, an up whose parity planes tile at 16 and 8 columns, two
+    # chunks of the reduction
+    ("enc0", 16, 24, 257, 9), ("enc0", 16, 24, 129, 37),
+    ("enc0", 20, 24, 129, 37), ("final", 48, 2, 127, 37),
+    ("up", 8, 8, 8, 50), ("down", 40, 24, 31, 9),
 ])
 def test_stencil_bf16_kernel_matches_plain(cuda, mode, c, n, f_in, t):
     rng = np.random.default_rng(15)
@@ -449,6 +456,98 @@ def test_stencil_bf16_kernel_matches_plain(cuda, mode, c, n, f_in, t):
             assert g is None
         else:
             _close_mode(g, r)
+
+
+def _stencil_bf16_args(rng, mode, c, n, f_in, t, b=2):
+    wshape = (c, n, 3, 3) if mode in ("up", "final") else (n, c, 3, 3)
+    args = [_t(rng, (b, c, t, f_in)).to(BF16), _t(rng, wshape, scale=0.2),
+            _t(rng, (n,), scale=0.2)]
+    if mode == "enc0":
+        return args + [None, None]
+    return args + [_t(rng, (b, c), 0.5, 1.5), _t(rng, (b, c), -0.5, 0.5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["enc0", "down", "up", "final"])
+def test_stencil_bf16_repeats_bit_for_bit(cuda, mode):
+    """Two calls on the same inputs give the same bits (fixed-order sums
+    and statistics), and the float32 parameter as ``w`` gives the bits of
+    its bf16 cast (the serving path passes the parameter; the wrapper
+    rounds it where it packs)."""
+    c, n = (12, 24) if mode == "enc0" else (32, 24) if mode != "final" \
+        else (48, 4)
+    x, w, *rest = _stencil_bf16_args(np.random.default_rng(20), mode, c, n,
+                                     63, 37)
+    first = stencil(x, w.to(BF16), *rest, mode)
+    again = stencil(x, w.to(BF16), *rest, mode)
+    from_f32 = stencil(x, w, *rest, mode)
+    for a, b_, c_ in zip(first, again, from_f32):
+        if a is None:
+            assert b_ is None and c_ is None
+        else:
+            assert torch.equal(a, b_) and torch.equal(a, c_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths,n,n_fin,with_acc,t,f", DENSE_CASES)
+def test_int8_rows_on_the_card_equal_quantize_rows(cuda, widths, n, n_fin,
+                                                   with_acc, t, f):
+    """The row kernel's qw (packed), corr and rq are the plain version's
+    (quantize_rows in pack_int8_rows's layout) bit for bit: both take beta
+    and the coefficients as float64 sums of the float32 products."""
+    from misonet_tpu_torch.ops.kernels.dense_stack_int8 import (
+        quantize_rows, quantize_rows_packed)
+    from misonet_tpu_torch.ops.kernels.tc_pack import pack_int8_rows
+
+    _, _, w, _, scale, mean = _dense_args(
+        np.random.default_rng(21), widths, n, n_fin, with_acc, t, f, BF16,
+        torch.float32)
+    got = quantize_rows_packed(w, scale, mean, widths)
+    qw, corr, rq = quantize_rows(w, scale, mean)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], pack_int8_rows(qw, widths))
+    assert torch.equal(got[1], corr)
+    assert torch.equal(got[2], rq)
+
+
+@pytest.mark.cuda
+def test_dense_stack_int8_repeats_bit_for_bit(cuda):
+    args = _dense_args(np.random.default_rng(22), (24, 24), 96, 24, True,
+                       37, 63, BF16, torch.float32)
+    first = dense_stack_int8(*args, 24)
+    again = dense_stack_int8(*args, 24)
+    for a, b_ in zip(first, again):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+def test_int8_call_launches_one_row_kernel(cuda):
+    """One int8 call is three kernels on the card: the row quantization
+    (one launch, where PyTorch took 33), the tensor-core conv and the
+    statistics' second pass."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from misonet_tpu_torch.ops.kernels.dense_stack_int8 import (
+        quantize_rows_packed)
+
+    args = _dense_args(np.random.default_rng(23), (24,), 120, 24, False, 37,
+                       63, BF16, torch.float32)
+    before = quantize_rows_packed.launches
+    dense_stack_int8(*args, 24)
+    torch.cuda.synchronize()
+    assert quantize_rows_packed.launches == before + 1
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        dense_stack_int8(*args, 24)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)}
+    assert sum(kernels.values()) == 3, kernels
+    for name in ("quantize_rows_kernel", "dense_stack_int8_tc_kernel",
+                 "reduce_stats_kernel"):
+        assert sum(c for k, c in kernels.items() if name in k) == 1, kernels
 
 
 @pytest.mark.cuda

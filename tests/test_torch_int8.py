@@ -70,6 +70,7 @@ from misonet_tpu_torch.ops.kernels.dense_stack_int8 import (  # noqa: E402
     dense_stack_int8,
     dense_stack_int8_plain,
     quantize_rows,
+    quantize_rows_packed,
 )
 from misonet_tpu_torch.ops.kernels.flat_grad import dense_stack_int8_ad  # noqa: E402
 from misonet_tpu_torch.utils.weights import load_jax_params  # noqa: E402
@@ -186,6 +187,82 @@ def test_quantized_rows_share_one_scale():
     assert (rq * QS * 127 > rows).all()
     assert qw.abs().amax().item() < 127
     assert corr.abs().amax().item() >= 16 * 127
+
+
+CALL_CASES = [
+    ((8,), 24, 8, False),
+    ((8,), 24, 8, True),
+    ((8, 8), 32, 8, False),
+    ((8, 8), 16, 16, True),
+]
+
+
+def _rows_float32(w_stack, scale, mean):
+    """quantize_rows as it was before its sums went to float64: beta and
+    the coefficients summed in float32."""
+    n, c = w_stack.shape[:2]
+    b = scale.shape[0]
+    beta = -torch.einsum("ncij,bc->bnij", w_stack, mean * scale)
+    coef = torch.stack([
+        beta.sum(dim=(2, 3)),
+        -beta[:, :, 0, :].sum(-1), -beta[:, :, 2, :].sum(-1),
+        -beta[:, :, :, 0].sum(-1), -beta[:, :, :, 2].sum(-1),
+        beta[:, :, 0, 0], beta[:, :, 0, 2], beta[:, :, 2, 0], beta[:, :, 2, 2],
+    ], dim=2)
+    w_rows = w_stack.permute(0, 2, 3, 1).reshape(n, 9 * c)
+    row_max = torch.maximum(w_rows.abs().amax(dim=1), coef.abs().amax(dim=2))
+    rs = torch.clamp(row_max, min=1e-20) / 127.0
+
+    def q(v):
+        return torch.clamp(torch.round(v / rs[..., None]), -127.0, 127.0)
+
+    qw = q(w_rows).to(torch.int8).reshape(b, n, 9, c)
+    qc = q(coef).to(torch.int32)
+    fields = [[1, e & 1, e >> 1 & 1, e >> 2 & 1, e >> 3 & 1,
+               (e & 1) * (e >> 2 & 1), (e & 1) * (e >> 3 & 1),
+               (e >> 1 & 1) * (e >> 2 & 1), (e >> 1 & 1) * (e >> 3 & 1)]
+              for e in range(16)]
+    corr = (qc[:, :, None, :] * torch.tensor(fields, dtype=torch.int32)
+            ).sum(-1) * int(QS)
+    return qw, corr.to(torch.int32), rs / QS
+
+
+@pytest.mark.parametrize("widths,n,n_fin,with_acc", CALL_CASES)
+def test_float64_rows_match_the_float32_rows(widths, n, n_fin, with_acc):
+    """quantize_rows takes beta and the coefficients as float64 sums of the
+    float32 products (as the card's row kernel does).  On the inputs of
+    test_int8_call_matches_pallas (the same draws) its quantized rows (qw,
+    corr) equal those of the float32 sums it had before; the row scale rq
+    moves in the rows whose max is a coefficient, by what the float32 sums
+    of up to 9 rounded beta values had rounded it: a few float32 ulps
+    (bound 2^-21 relative; measured at most 1.95 * 2^-23, in 15-31 of
+    32-64 rows)."""
+    b, t, f = 2, 10, 7
+    rng = np.random.default_rng(11)
+    c = sum(widths)
+    for w_ in widths:
+        rng.standard_normal((b, w_, t, f))              # the sources
+    if with_acc:
+        rng.standard_normal((b, n, t, f))               # acc_in
+    w = _t((0.2 * rng.standard_normal((n, c, 3, 3))).astype(np.float32))
+    scale = _t(rng.uniform(0.5, 1.5, (b, c)).astype(np.float32))
+    mean = _t(rng.uniform(-0.5, 1.0, (b, c)).astype(np.float32))
+    qw, corr, rq = quantize_rows(w, scale, mean)
+    qw0, corr0, rq0 = _rows_float32(w, scale, mean)
+    assert qw.dtype == torch.int8 and torch.equal(qw, qw0)
+    assert corr.dtype == torch.int32 and torch.equal(corr, corr0)
+    assert rq.dtype == torch.float32
+    assert ((rq - rq0).abs() <= 2.0 ** -21 * rq0).all()
+
+
+def test_quantize_rows_packed_refuses_cpu_tensors():
+    """The row kernel's wrapper runs on the card only: a CPU tensor is
+    refused, not sent to the plain rows (dense_stack_int8 sends CPU calls to
+    dense_stack_int8_plain before it reaches the row kernel)."""
+    w = torch.zeros((8, 8, 3, 3))
+    scale, mean = torch.ones((1, 8)), torch.zeros((1, 8))
+    with pytest.raises(ValueError, match="unsupported device cpu"):
+        quantize_rows_packed(w, scale, mean, (8,))
 
 
 def _stats(x):

@@ -254,3 +254,4 @@ def test_chip_smoke_imports_only_the_port():
     assert not tops & {*JAX_MODULES, "misonet_tpu"}, sorted(modules)
     assert "misonet_tpu_torch" in tops
     _assert_imports_leave_out_jax(["chip_smoke", *sorted(modules)])
+

@@ -10,14 +10,18 @@ Phases (one or more JSON lines each; any failure exits non-zero):
   1. device   card name and power limit; TF32 off for cuDNN and matmuls
   2. build    nvcc-build the CUDA kernels from misonet_tpu_torch/csrc;
               count each kernel mode's tensor-core instructions (HMMA /
-              HGMMA, and IMMA / IGMMA for int8, in the SASS, ``cuobjdump
-              -sass``) into its record's tensor_core_ops
+              HGMMA for bf16 and TF32, and IMMA / IGMMA for int8, in the
+              SASS, ``cuobjdump -sass``) into its record's tensor_core_ops
   3. kernels  each forward kernel against its plain PyTorch version at
               the serving path's shapes (B = 6 shifts x T = 501 frames),
               and the enhancement nets' own stencil shapes (MISO3 / MISO2
               enc0 at C = 16 / 20, MISO3 final at N = 2), error bound 1e-4
               normalized by max-abs, CUDA-event times of both and of the
-              cuDNN conv (library_ms), and the bound
+              cuDNN conv (library_ms), and the bound; the float32 stencil
+              (three TF32 passes on the tensor cores; fails without HMMA)
+              also within 1e-5 of its float64 run; each float32 stencil's
+              weight packed and split on the card (pack_tf32, the float32
+              kernels' weight planes) against its plain twin, bit for bit
   4. forward  full default-width MISO1 forward [6, 6, 501, 129] (seeded
               weights, non-zero biases): fused kernel path against the
               plain path, exactly 50 dense_stack and 10 stencil launches
@@ -27,8 +31,12 @@ Phases (one or more JSON lines each; any failure exits non-zero):
               shortest request again on the plain path for agreement
   6. bwd-kernels  stencil_bwd against stencil_bwd_plain at the train
               path's shapes (B = 8 utterances x T = 501), the cases of
-              phase 3, bound 1e-4; times of both and of the cuDNN
-              backward pair (conv2d_input + conv2d_weight) as library_ms
+              phase 3, bound 1e-4, and against the plain version run in
+              float64, bound 1e-5; times of both, of the wgrad half alone
+              and of the cuDNN backward pair (conv2d_input +
+              conv2d_weight) as library_ms; fails if its kernels have no
+              tensor-core instructions; the dgrad's weight planes
+              (pack_tf32) against their plain twin, bit for bit
   7. train    the full-width wave train step [8, 6, 501, 129] (seeded
               synthetic 2-speaker 4 s mixtures, Adam lr 1e-3, NaN guard
               on): fused vs plain loss and gradients from the same weights
@@ -36,9 +44,10 @@ Phases (one or more JSON lines each; any failure exits non-zero):
               the plain path's movement under the probe), bit-identical
               repeat gradients, 5 fused steps on the repeated batch with
               exactly 50 dense_stack, 10 stencil and 60 stencil_bwd
-              launches per step and a falling loss, step times and peak
-              memory of both paths, and a torch.profiler breakdown of one
-              fused step
+              launches per step (and pack_tf32's launches, one per new
+              weight version and role) and a falling loss, step times and
+              peak memory of both paths, and a torch.profiler breakdown of
+              one fused step
   8. solve-kernel  hermitian_solve against hermitian_solve_plain run in
               float64, M = 6, 258 / 1,032 / 262,144 seeded PD systems (the
               utterance- and chunk-mode MVDR of a 12.3 s request, and a
@@ -139,9 +148,14 @@ Phases (one or more JSON lines each; any failure exits non-zero):
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Needs one CUDA device; exits 1
 without one.  Bounds (``bound_ms``) are the larger of the call's FLOPs
-over the H100's peak for the kernel's type (float32 CUDA cores; the dense
-bf16 and int8 tensor-core rates for the bf16 and int8 modes) and its bytes
-(each input read once, each output written once) over its memory rate.
+over the H100's peak for the kernel's type and its bytes (each input
+read once, each output written once) over its memory rate.  The peaks:
+for every float32 conv, a third of the dense TF32 tensor-core rate (three
+TF32 passes, the card's fastest float32-accurate route, which the
+float32 stencil and stencil_bwd take), with the bound at the float32
+CUDA-core rate beside it on each case's line as fma_bound_ms; the float32 CUDA-core rate for
+hermitian_solve; the dense bf16 and int8 tensor-core rates for the bf16
+and int8 modes.
 """
 
 from __future__ import annotations
@@ -158,6 +172,9 @@ import numpy as np
 import torch
 
 BOUND = 1e-4   # kernel vs plain, normalized by the plain output's max-abs
+# a float32 kernel on the tensor cores (three TF32 passes) vs its plain
+# version run in float64: float32's class (one TF32 pass is ~1e-3)
+F64_BOUND = 1e-5
 BF16_BOUND = 1e-2  # a bf16-stored kernel output vs plain: two bf16 ulps
 # full-width bf16 forward, fused vs plain bf16 path (JAX's own bf16 class,
 # tests/test_dense_stack.py:127), unless the plain path's own movement
@@ -184,6 +201,9 @@ SEED = 0
 # bf16 and int8 tensor-core rates, HBM3
 PEAK_FLOPS = 67e12
 PEAK_BF16 = 989e12
+# float32 products as three TF32 passes (big big + big small + small big)
+# on the dense TF32 tensor-core rate, 495 TFLOP/s
+PEAK_TF32X3 = 495e12 / 3
 PEAK_INT8 = 1979e12
 PEAK_FP64 = 34e12  # float64 outside the tensor cores (same data sheet)
 PEAK_BYTES = 3.35e12
@@ -262,23 +282,25 @@ def expect(mode="float32", dense=0, stencil=0, **other):
 
 
 # the kernel functions of each counted mode, as substrings of their SASS
-# names (the bf16 modes of dense_stack, dense_layer, stencil and
-# stencil_bwd and the int8 mode run the tensor-core kernels of
-# csrc/conv_mma.cuh)
+# names (the bf16 modes of dense_stack and dense_layer, both modes of
+# stencil and stencil_bwd and the int8 mode run the tensor-core kernels of
+# csrc/conv_mma.cuh; float32 stencil and stencil_bwd as TF32 passes)
 KERNEL_FUNCTIONS = {
     "dense_stack": ("dense_stack_kernel",),
     "dense_stack_bf16": ("dense_stack_tc_kernel",),
     "dense_layer": ("dense_stack_kernel",),
     "dense_layer_bf16": ("dense_stack_tc_kernel",),
-    "stencil": ("stencil_kernel",), "stencil_bf16": ("stencil_tc_kernel",),
-    "stencil_bwd": ("dgrad_kernel", "wgrad_kernel"),
+    "stencil": ("stencil_tc_kernel",),
+    "stencil_bf16": ("stencil_tc_kernel",),
+    "stencil_bwd": ("dgrad_tc_kernel", "wgrad_tc_kernel"),
     "stencil_bwd_bf16": ("dgrad_tc_kernel", "wgrad_tc_kernel"),
     "hermitian_solve": ("hermitian_solve_kernel",),
     "dense_stack_int8": ("dense_stack_int8_tc_kernel",),
     "quantize_rows": ("quantize_rows_kernel",),
+    "pack_tf32": ("pack_tf32_kernel",),
 }
-# the SASS opcodes of the tensor cores: bf16 / fp16 (HMMA, wgmma HGMMA)
-# and integer (IMMA, IGMMA)
+# the SASS opcodes of the tensor cores: bf16 / fp16 / TF32 (HMMA, wgmma
+# HGMMA) and integer (IMMA, IGMMA)
 TENSOR_CORE_OPS = ("HMMA", "HGMMA", "IMMA", "IGMMA")
 
 
@@ -305,7 +327,7 @@ def tensor_core_ops(lib) -> dict[str, int]:
     for mode, parts in KERNEL_FUNCTIONS.items():
         # a template with float32 and bf16 instances: the mode's own
         shared = mode.removesuffix("_bf16") in ("dense_stack", "dense_layer",
-                                                "stencil_bwd")
+                                                "stencil", "stencil_bwd")
         counts[mode] = sum(
             n for fn, n in per_function.items()
             if any(p in fn for p in parts)
@@ -325,8 +347,8 @@ def new_record(name, replaces, source=None):
     return {"name": name, "route": "cuda",
             "source": f"misonet_tpu_torch/csrc/{source or name}.cu",
             "replaces": replaces, "launches": 0, "max_abs_err": 0.0,
-            "max_norm_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-            "bound_by": None, "library_ms": 0.0, "ops_ms": 0.0,
+            "max_norm_err": 0.0, "f64_max_norm_err": None, "ms": 0.0,
+            "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": None, "library_ms": 0.0, "ops_ms": 0.0,
             "bytes_ms": 0.0, "tensor_core_ops": 0}
 
 
@@ -352,7 +374,8 @@ def widen(t: torch.Tensor) -> torch.Tensor:
 
 def check_kernel(name, kernel, plain, args, record, flops, library,
                  in_float64=False, phase="kernels", to_record=True,
-                 peak=PEAK_FLOPS, extra=None, reps=10, reference=None):
+                 peak=PEAK_FLOPS, extra=None, reps=10, reference=None,
+                 f64=None):
     """Compare one kernel call with its plain version; time both and the
     library call ``library`` (a PyTorch call computing the same function,
     or None where there is none); add the call's bound at ``peak``
@@ -361,24 +384,41 @@ def check_kernel(name, kernel, plain, args, record, flops, library,
     inputs widened to float64 for the comparison; ``reference``: a
     function of ``args`` that gives the comparison's outputs (float64
     sums) in place of the plain version; either way the plain version's
-    own run is reported beside the kernel.  ``to_record``: add the times
-    to the kernel's record (its main-path cases).  ``extra``: more numbers
-    for the case's line; ``reps``: timed calls of the plain version."""
+    own run is reported beside the kernel.  ``f64`` (a float32 kernel on
+    the tensor cores): every output is also held to F64_BOUND against the
+    float64 run of the function, which is the comparison's own reference
+    where ``f64`` is True (``in_float64``), else the run of ``f64``, a
+    function of ``args`` (and the plain version's own error against it
+    is reported).  A float32 conv takes its bound at PEAK_TF32X3, the
+    fastest float32-accurate route of the card; its bound at the FMA peak
+    is printed on the case's line as fma_bound_ms (not in the record).
+    ``to_record``: add the times to the kernel's record (its main-path
+    cases).  ``extra``: more numbers for the case's line; ``reps``: timed
+    calls of the plain version."""
     got = kernel(*args)
     extra = dict(extra or {})
     if in_float64:
-        def reference(*a):
-            return plain(*[widen(v) if isinstance(v, torch.Tensor) else
-                           [widen(x) for x in v] if isinstance(v, list) else v
-                           for v in a])
+        reference = widened(plain)
     if reference is not None:
         want = reference(*args)
         extra["plain_f32_max_norm_err"] = max(
             e[1] for e in output_errs(name, plain(*args), want))
     else:
         want = plain(*args)
+    f64_errs = []
+    if callable(f64):
+        ref = f64(*args)
+        f64_errs = [e[1] for e in output_errs(name, got, ref)]
+        extra["plain_f64_max_norm_err"] = max(
+            e[1] for e in output_errs(name, want, ref))
+        del ref
     torch.cuda.synchronize()
     errs = output_errs(name, got, want)
+    if f64 is True:
+        f64_errs = [e[1] for e in errs]
+    if f64 is not None:
+        extra["f64_norm_errs"] = f64_errs
+        extra["f64_max_norm_err"] = max(f64_errs)
     err = errs[0][0]                 # the first output (sums are ~1e5)
     rel = max(e[1] for e in errs)    # every output, normalized
     bounds = [BF16_BOUND if w.dtype == torch.bfloat16 else BOUND
@@ -390,6 +430,8 @@ def check_kernel(name, kernel, plain, args, record, flops, library,
         # the wgrad half alone: the same call without input gradients
         extra["wgrad_ms"] = cuda_ms(lambda: kernel(*args[:-1], False))
     bound, t_ops, t_bytes = bound_ms(flops, args, got, peak)
+    if peak == PEAK_TF32X3:
+        extra["fma_bound_ms"] = bound_ms(flops, args, got)[0]
     print(json.dumps({"phase": phase, "case": name,
                       "max_abs_err": err, "max_norm_err": rel,
                       "norm_errs": [e[1] for e in errs], "bounds": bounds,
@@ -401,10 +443,16 @@ def check_kernel(name, kernel, plain, args, record, flops, library,
     if not all(e[1] <= b for e, b in zip(errs, bounds)):
         fail(f"{name}: normalized errors {[e[1] for e in errs]} above "
              f"{bounds}")
+    if not all(e <= F64_BOUND for e in f64_errs):
+        fail(f"{name}: normalized errors against the float64 run "
+             f"{f64_errs} above {F64_BOUND}")
     if not to_record:
         return got, want
     record["max_abs_err"] = max(record["max_abs_err"], err)
     record["max_norm_err"] = max(record["max_norm_err"], rel)
+    if f64 is not None:
+        record["f64_max_norm_err"] = max(record["f64_max_norm_err"] or 0.0,
+                                         max(f64_errs))
     record["ms"] += t_kernel
     record["plain_ms"] += t_plain
     if t_lib is None or record["library_ms"] is None:
@@ -415,6 +463,52 @@ def check_kernel(name, kernel, plain, args, record, flops, library,
     record["ops_ms"] += t_ops
     record["bytes_ms"] += t_bytes
     return got, want
+
+
+def widened(fn):
+    """``fn`` run on its arguments widened to float64 (tensors, and lists
+    of them)."""
+    def run(*a):
+        return fn(*[widen(v) if isinstance(v, torch.Tensor) else
+                    [widen(x) for x in v] if isinstance(v, list) else v
+                    for v in a])
+    return run
+
+
+def stencil_f64(x, w, bias, scale, mean, mode):
+    """stencil's function in float64 from the same arguments (its plain
+    version computes in float32): (y, sums, sqs)."""
+    import torch.nn.functional as F
+
+    from misonet_tpu_torch.ops.kernels.stencil_bwd import geometry
+
+    f64 = torch.float64
+    xn = x.to(f64)
+    if scale is not None:
+        xn = ((xn - mean.to(f64)[:, :, None, None])
+              * scale.to(f64)[:, :, None, None])
+    stride, padding = geometry(mode)
+    conv = F.conv_transpose2d if mode in ("up", "final") else F.conv2d
+    y = conv(xn, w.to(f64), bias.to(f64), stride=stride, padding=padding)
+    if mode not in ("down", "up"):
+        return y, None, None
+    y = F.elu(y)
+    return y, y.sum(dim=(2, 3)), (y * y).sum(dim=(2, 3))
+
+
+def check_pack(name, w, widths, transpose, records):
+    """pack_tf32 (the float32 weight planes, one launch) against its plain
+    twin on one weight of a float32 stencil or dgrad, bit for bit; its
+    bound is its bytes (no arithmetic but the split)."""
+    from misonet_tpu_torch.ops.kernels.tc_pack import (
+        pack_tf32, pack_tf32_plain)
+
+    got, want = check_kernel(f"pack_tf32 {name}", pack_tf32, pack_tf32_plain,
+                             (w, widths, transpose), records["pack_tf32"], 0,
+                             None, phase="pack")
+    if not torch.equal(got, want):
+        fail(f"pack_tf32 {name}: the card's planes differ from "
+             "pack_tf32_plain")
 
 
 def tensors_or_none(out):
@@ -484,6 +578,7 @@ def phase_kernels(records):
     from misonet_tpu_torch.ops.kernels.stencil import stencil, stencil_plain
     from misonet_tpu_torch.ops.kernels.stencil_bwd import geometry
 
+    check_tensor_cores(records["stencil"])
     rng = np.random.default_rng(SEED)
     for name, widths, n, n_fin, f, with_acc in DENSE_CASES:
         c = sum(widths)
@@ -500,7 +595,8 @@ def phase_kernels(records):
         check_kernel(f"dense_stack {name}", dense_stack, dense_stack_plain,
                      args, records["dense_stack"],
                      2 * conv_macs("dense", B, c, n, T, f),
-                     lambda: F.conv2d(xn, args[2], padding=1))
+                     lambda: F.conv2d(xn, args[2], padding=1),
+                     peak=PEAK_TF32X3)
 
     for name, mode, c, n, f_in, b in [*(case + (B,) for case in STENCIL_CASES),
                                       *ENHANCE_STENCIL_CASES]:
@@ -517,7 +613,10 @@ def phase_kernels(records):
                      records["stencil"],
                      2 * conv_macs(mode, b, c, n, T, f_in),
                      lambda: conv(xn, args[1], args[2], stride=stride,
-                                  padding=padding))
+                                  padding=padding),
+                     peak=PEAK_TF32X3, f64=stencil_f64)
+        check_pack(f"stencil {name}", args[1], (c,), mode in ("up", "final"),
+                   records)
 
 
 def int8_library(xs, w, scale, mean):
@@ -722,8 +821,7 @@ def phase_bwd_kernels(records, dtype=torch.float32):
         geometry, stencil_bwd, stencil_bwd_plain)
 
     bf16 = dtype == torch.bfloat16
-    if bf16:
-        check_tensor_cores(records["stencil_bwd_bf16"])
+    check_tensor_cores(records["stencil_bwd_bf16" if bf16 else "stencil_bwd"])
     rng = np.random.default_rng(SEED + (17 if bf16 else 4))
     cases = [(f"dense {name}", "dense", widths, n, f)
              for name, widths, n, _, f, _ in DENSE_CASES]
@@ -761,17 +859,23 @@ def phase_bwd_kernels(records, dtype=torch.float32):
                                  padding=padding)
                 conv2d_weight(xn, w.shape, g, stride=stride, padding=padding)
         macs = conv_macs(mode, b, c, n, T, f_in)
-        # the reference sums in float64: cuDNN's float32 weight gradient,
+        # float32: the reference is the plain version run in float64 (at
+        # BOUND, and at F64_BOUND: f64=True): cuDNN's float32 weight gradient,
         # summing ~500,000 products, is off by up to ~1e-4 of max-abs at
-        # these shapes, the kernel by ~1e-6
+        # these shapes
         check_kernel(f"stencil_bwd{' bf16' if bf16 else ''} {name}",
                      stencil_bwd, stencil_bwd_plain, args,
                      records["stencil_bwd_bf16" if bf16 else "stencil_bwd"],
                      2 * macs * (2 if need_dx else 1), library,
                      in_float64=not bf16,
                      reference=bwd_reference if bf16 else None,
+                     f64=None if bf16 else True,
                      phase="bf16-bwd-kernels" if bf16 else "bwd-kernels",
-                     peak=PEAK_BF16 if bf16 else PEAK_FLOPS)
+                     peak=PEAK_BF16 if bf16 else PEAK_TF32X3)
+        if not bf16 and need_dx:
+            # the dgrad's weight: output channel c, reduced channel n
+            check_pack(f"dgrad {name}", w, (n,),
+                       mode not in ("up", "final"), records)
 
 
 def seeded_model(cfg, device, kind="miso1", seed=SEED, **factory):
@@ -1148,7 +1252,7 @@ def profile_window(fn):
     gaps = [(seen[c] - t) / 1e3 for c, t in launched.items() if c in seen]
     groups = {"dense_stack": 0.0, "dense_stack_int8": 0.0, "int8_rows": 0.0,
               "stencil": 0.0, "stencil_bwd": 0.0, "hermitian_solve": 0.0,
-              "reduce_stats": 0.0, "other": 0.0}
+              "reduce_stats": 0.0, "pack_tf32": 0.0, "other": 0.0}
     calls = dict.fromkeys(groups, 0)
     other = {}
     ranges = {}
@@ -1182,15 +1286,16 @@ def profile_window(fn):
             group = "int8_rows"
         elif "dense_stack_kernel" in name or "dense_stack_tc_kernel" in name:
             group = "dense_stack"
-        elif "stencil_kernel" in name or "stencil_tc_kernel" in name:
+        elif "stencil_tc_kernel" in name:
             group = "stencil"
-        elif ("dgrad_kernel" in name or "dgrad_tc_kernel" in name
-              or "wgrad_" in name):
+        elif "dgrad_tc_kernel" in name or "wgrad_" in name:
             group = "stencil_bwd"
         elif "hermitian_solve_kernel" in name:
             group = "hermitian_solve"
         elif "reduce_stats_kernel" in name:
             group = "reduce_stats"
+        elif "pack_tf32_kernel" in name:
+            group = "pack_tf32"
         else:
             group = "other"
             other[name[:60]] = other.get(name[:60], 0.0) + us
@@ -1346,6 +1451,7 @@ def phase_train(cfg, device, records, mode="float32"):
     paths, and a profile of one fused step."""
     from misonet_tpu_torch.config import OptimizerConfig, StftConfig
     from misonet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from misonet_tpu_torch.ops.kernels.tc_pack import pack_tf32
     from misonet_tpu_torch.ops.stft import stft_scaled
     from misonet_tpu_torch.train import (
         create_train_state, make_optimizer, make_separate_wave_train_step)
@@ -1370,23 +1476,31 @@ def phase_train(cfg, device, records, mode="float32"):
     step = make_separate_wave_train_step(fused, opt, stft_cfg)
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
+    pack_tf32.launches = 0
     times, metrics = step_ms(step, state, batch, TRAIN_STEPS)
     counts = launch_counts()
+    packs = pack_tf32.launches
     peak_fused = torch.cuda.max_memory_allocated() / 2**30
     want = expect(mode, 50 * TRAIN_STEPS, 10 * TRAIN_STEPS,
                   **{bwd: 60 * TRAIN_STEPS})
     losses = [m["loss"] for m in metrics]
     print(json.dumps({"phase": phase, "path": "fused", "steps": TRAIN_STEPS,
-                      "launches": counts, "losses": losses,
+                      "launches": counts, "pack_tf32_launches": packs,
+                      "losses": losses,
                       "grad_norms": [m["grad_norm"] for m in metrics],
                       "step_ms": times, "peak_gib": peak_fused}), flush=True)
     if counts != want:
         fail(f"{phase} launched {counts}, expected {want}")
+    if (packs > 0) != (mode == "float32"):
+        fail(f"{phase}: {packs} pack_tf32 launches (float32 packs each new "
+             "weight version on the card; bf16 never)")
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         fail(f"{phase}: loss not finite and falling: {losses}")
     # the bf16 forward modes keep the launches of their forward (phase 12)
     for name in ((*MODES[mode], bwd) if mode == "float32" else (bwd,)):
         records[name]["launches"] = counts[name]
+    if mode == "float32":
+        records["pack_tf32"]["launches"] = packs
 
     # the plain path's step time and memory
     popt = make_optimizer(opt_cfg, plain.parameters())
@@ -1401,11 +1515,13 @@ def phase_train(cfg, device, records, mode="float32"):
 
     dense, sten, enc0 = body_macs(fused, TRAIN_B, T)
     bwd_flop = 2 * (2 * (dense + sten) - enc0)  # dgrad + wgrad, no enc0 dx
-    peak = PEAK_FLOPS if mode == "float32" else PEAK_BF16
+    peak = PEAK_TF32X3 if mode == "float32" else PEAK_BF16
+    fma = ({"stencil_bwd_fma_bound_ms": bwd_flop / PEAK_FLOPS * 1e3}
+           if mode == "float32" else {})
     print(json.dumps({"phase": phase, "work": "per step, fused body",
                       "forward_gflop": 2 * (dense + sten) / 1e9,
                       "stencil_bwd_gflop": bwd_flop / 1e9,
-                      "stencil_bwd_bound_ms": bwd_flop / peak * 1e3}),
+                      "stencil_bwd_bound_ms": bwd_flop / peak * 1e3, **fma}),
           flush=True)
 
     prof = profile_call(lambda: step(state, *batch))
@@ -1803,7 +1919,7 @@ def phase_dense_layer(records):
     rng = np.random.default_rng(SEED + 20)
     f = DENSE_LAYER_F
     cases = []
-    for dtype, peak in ((torch.float32, PEAK_FLOPS),
+    for dtype, peak in ((torch.float32, PEAK_TF32X3),
                         (torch.bfloat16, PEAK_BF16)):
         for name, widths, n, *switch in [
                 *((nm, w, n, True, True) for nm, w, n in DENSE_LAYER_CASES),
@@ -2147,6 +2263,8 @@ def main() -> int:
              None),
             ("quantize_rows", "misonet_tpu/ops/pallas/dense_stack.py:357",
              "dense_stack_int8"),
+            ("pack_tf32", "misonet_tpu/ops/pallas/stencil_bwd.py:419",
+             "tc_pack"),
             ("stencil_bwd_bf16", "misonet_tpu/ops/pallas/stencil_bwd.py:300",
              "stencil_bwd"),
             ("dense_layer", "misonet_tpu/ops/pallas/dense_flat.py:240",
@@ -2238,7 +2356,8 @@ def main() -> int:
 
     # every time is the sum over that kernel's main-path cases in phase 3,
     # 6, 8, 11, 17 or 20; launches are those of the train path's run (phase
-    # 7, and phase 18 for stencil_bwd_bf16), of the cascade's requests
+    # 7 for the float32 modes and pack_tf32, and phase 18 for
+    # stencil_bwd_bf16), of the cascade's requests
     # (phase 9) for hermitian_solve, of the bf16 and int8 forwards (phases
     # 12-13) for their forward modes and quantize_rows, and of phase 20's
     # driven run for dense_layer

@@ -1,7 +1,9 @@
 // Shared pieces of the port's direct-convolution kernels (dense_stack.cu,
-// stencil.cu, dense_stack_int8.cu): the block tiling constants, the
-// shared-memory weight staging, the ELU, the two-pass InstanceNorm
-// statistics, and the loads and stores of the two storage types.
+// and of the tensor-core kernels of stencil.cu, stencil_bwd.cu and
+// dense_stack_int8.cu): the float32 FMA loop's block tiling constants,
+// shared-memory weight staging and register tiles (dense_stack.cu's float32
+// mode), the ELU, the two-pass InstanceNorm statistics, and the loads and
+// stores of the two storage types.
 //
 // Storage types.  A kernel templated on T in {float, __nv_bfloat16} loads
 // T, computes in float32 and stores T.  In the bfloat16 mode (the JAX
@@ -65,13 +67,11 @@ __device__ __forceinline__ float round_as<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// ws[k][tap][nn] (nn < NB) = w[n0 + nn, c_begin + k, tap] for a weight
-// tensor laid out [N, C, 3, 3], or w[c_begin + k, n0 + nn, tap] for one
-// laid out [C, N, 3, 3] (TRANSPOSED: torch's ConvTranspose2d weight, read
-// as it is); zero for channels past N or past the chunk of CK.
-// Consecutive threads read consecutive values of w in both layouts; W is
-// the weights' storage type.
-template <int CK, int THREADS, bool TRANSPOSED = false, typename W>
+// ws[k][tap][nn] (nn < NB) = w[n0 + nn, c_begin + k, tap] of a weight
+// tensor laid out [N, C, 3, 3]; zero for channels past N or past the chunk
+// of CK.  Consecutive threads read consecutive values of w; W is the
+// weights' storage type.
+template <int CK, int THREADS, typename W>
 __device__ __forceinline__ void stage_weights(float (*ws)[9][WS_ROW],
                                               const W* __restrict__ w,
                                               int N, int C, int n0,
@@ -79,15 +79,12 @@ __device__ __forceinline__ void stage_weights(float (*ws)[9][WS_ROW],
   for (int i = threadIdx.x; i < CK * 9 * NB; i += THREADS) {
     const int tap = i % 9;
     const int r = i / 9;
-    const int k = TRANSPOSED ? r / NB : r % CK;
-    const int nn = TRANSPOSED ? r % NB : r / CK;
+    const int k = r % CK;
+    const int nn = r / CK;
     const int n = n0 + nn;
     float v = 0.f;
-    if (n < N && k < ck) {
-      const size_t row = TRANSPOSED ? (size_t)(c_begin + k) * N + n
-                                    : (size_t)n * C + c_begin + k;
-      v = ldg_f32(w + row * 9 + tap);
-    }
+    if (n < N && k < ck)
+      v = ldg_f32(w + ((size_t)n * C + c_begin + k) * 9 + tap);
     ws[k][tap][nn] = v;
   }
 }

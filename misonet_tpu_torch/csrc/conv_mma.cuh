@@ -1,33 +1,56 @@
-// Tensor-core pieces of the bf16 modes of dense_stack.cu (the forward, and
-// through it dense_layer), stencil.cu and stencil_bwd.cu (dgrad and wgrad),
-// and of the int8 kernel dense_stack_int8.cu.  bf16 products are
+// Tensor-core pieces of the gather convs: the float32 and bf16 modes of
+// stencil.cu and stencil_bwd.cu (dgrad and wgrad), the bf16 mode of
+// dense_stack.cu (the forward, and through it dense_layer), and the int8
+// kernel dense_stack_int8.cu.  bf16 products are
 // `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32` (bf16 x bf16
 // products, float32 sums), int8 products
 // `mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32` (exact int32 sums),
-// their operands loaded from shared memory by `ldmatrix`.
+// float32 products three `mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32`
+// over split operands (below), their operands loaded from shared memory by
+// `ldmatrix`.
+//
+// float32 on TF32 tensor cores.  Each float32 operand x splits into big =
+// tf32(x) and small = tf32(x - big) (cvt.rna: 10 explicit mantissa bits,
+// ties away from zero; x - big is exact in float32), so x = big + small
+// + O(2^-22 |x|).  A product is then big big + big small + small big,
+// summed in the mma's float32 accumulators (small terms first); only
+// small small, about 2^-22 of the product, is left out.  That is
+// float32's accuracy class at a third of the TF32 rate (495 / 3 = 165
+// TFLOP/s on the H100 against 67 for float32 FMAs); one TF32 pass would
+// keep about three decimal digits.  The window splits in registers after
+// its ldmatrix; the weights arrive split, as two packed planes (big,
+// small) made once per weight version by one launch of
+// pack_tf32_kernel (tc_pack.cu, through tc_pack.packed of a float32
+// weight), which a block stages side by side: splitting them in registers
+// as well cost the dgrad more than the second plane's staging does (a
+// diagnostic build on the H100, PERF.md).  The wgrad, whose operands are both
+// activations, splits both once as it stages them, into big and small
+// planes in shared memory.
 //
 // Layout.  A 3x3 conv is an implicit GEMM whose reduction runs over
 // (tap, channel).  The reduced tensor is staged channels-last in shared
-// memory: one row per position of a window of the plane, 16 bytes (8 bf16
-// or 16 int8 channels) per "group", rows padded by 16 bytes so that the 8
-// rows one `ldmatrix` reads fall in distinct banks, plus one zero row.  A
-// unit of the reduction is (group, tap): one group read at one tap.  Every
-// tap of every geometry is then a row pointer per lane: a shifted
-// position, a stride-2 position (DOWN, UP), or the zero row for a tap of
-// the wrong parity (the window holds zeros outside the plane).  Nothing is
-// masked in the inner loop, and a group need not be a multiple of a k-step
-// of the call's channels: bf16 C = 24 is 3 groups, 27 units, 14 k-steps.
-// A k-step is two units in both types (16 bf16 or 32 int8 values), so
-// the fragments of m16n8k16 bf16 and m16n8k32 s8 come out of the same
-// ldmatrix addresses: a 32-bit register holds 2 bf16 or 4 int8 values of
-// one row.
+// memory: one row per position of a window of the plane, 16 bytes (4
+// float32, 8 bf16 or 16 int8 channels) per "group", rows padded by 16
+// bytes so that the 8 rows one `ldmatrix` reads fall in distinct banks,
+// plus one zero row.  A unit of the reduction is (group, tap): one group
+// read at one tap.  Every tap of every geometry is then a row pointer per
+// lane: a shifted position, a stride-2 position (DOWN, UP), or the zero
+// row for a tap of the wrong parity (the window holds zeros outside the
+// plane).  Nothing is masked in the inner loop, and a group need not be a
+// multiple of a k-step of the call's channels: bf16 C = 24 is 3 groups, 27
+// units, 14 k-steps.  A k-step is two units in every type (8 float32, 16
+// bf16 or 32 int8 values), so the fragments of m16n8k8 tf32, m16n8k16
+// bf16 and m16n8k32 s8 come out of the same ldmatrix addresses: a 32-bit
+// register holds 1 float32, 2 bf16 or 4 int8 values of one row.
 //
 // Operands: the gather kernels (the forwards, the dgrad) take A from the
 // window with ldmatrix (rows = positions) and B from the weights; the
-// wgrad takes A from the window with ldmatrix.trans (rows = channels,
-// reduction over positions) and B from g staged [n][position].  Weights
-// arrive packed [group][tap][output][16 bytes] (ops/kernels/tc_pack.py),
-// so a block copies them with 16-byte cp.async while it stages the window.
+// wgrad takes A from the window (rows = channels, reduction over
+// positions: ldmatrix.trans in bf16, 32-bit loads in float32, whose
+// elements ldmatrix.trans would cut in half) and B from g staged
+// [n][position].  Weights arrive packed [group][tap][output][16 bytes]
+// (ops/kernels/tc_pack.py), so a block copies them with 16-byte cp.async
+// while it stages the window.
 //
 // Geometry: for an output column f and freq tap kf, the window column of
 // the source, and the window row r + 1 + TS (kt - 1) for a tile row r.  The
@@ -41,6 +64,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "conv_common.cuh"
 
@@ -95,7 +120,14 @@ struct Geo {
   }
 };
 
-constexpr int GROUP_BYTES = 16;  // 8 bf16 or 16 int8 channels
+constexpr int GROUP_BYTES = 16;  // 4 float32, 8 bf16 or 16 int8 channels
+
+// Element types whose products run as three TF32 passes, and the packed
+// weight planes of each type (float32: TF32 big and small).
+template <typename E>
+constexpr bool kTf32 = std::is_same_v<E, float>;
+template <typename E>
+constexpr int kPlanes = kTf32<E> ? 2 : 1;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -146,6 +178,47 @@ __device__ __forceinline__ void mma(int (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d += a (16 x 8, row) * b (8 x 8, col), TF32 operands, float32 sums.
+// Register a0 holds row g = lane / 4 at k = lane % 4, a1 row g + 8, a2 and
+// a3 the same at k + 4; b0 column g at k = lane % 4, b1 at k + 4; d as the
+// bf16 product's.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x (float32 bits) -> big = tf32(x), small = tf32(x - big), both rounded
+// to nearest with ties away from zero (cvt.rna), as tc_pack.tf32_split.
+template <int K>
+__device__ __forceinline__ void split_tf32(const uint32_t (&x)[K],
+                                           uint32_t (&big)[K],
+                                           uint32_t (&small)[K]) {
+#pragma unroll
+  for (int e = 0; e < K; ++e) {
+    const float v = __uint_as_float(x[e]);
+    uint32_t hi, lo;
+    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(v));
+    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(v - __uint_as_float(hi)));
+    big[e] = hi;
+    small[e] = lo;
+  }
+}
+
+// d += (ab + as) (bb + bs) but for as bs: the three TF32 products of split
+// operands, small terms first (b0, b1 as mma_tf32's).
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4], uint32_t bb0,
+                                     uint32_t bb1, uint32_t bs0,
+                                     uint32_t bs1) {
+  mma_tf32(d, as, bb0, bb1);
+  mma_tf32(d, ab, bs0, bs1);
+  mma_tf32(d, ab, bb0, bb1);
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -184,9 +257,11 @@ constexpr int WIN_ROW = GMAX * GROUP_BYTES + 16;  // bytes per window row
 __host__ __device__ constexpr int unit_bytes(int bn) { return bn * 16 + 16; }
 
 // Blocks per SM the gather kernels ask registers for (at most 85 a thread
-// up to 32 accumulators, 128 for the widest tile).
+// up to 32 accumulators, 128 for the widest tile; float32, which keeps a
+// chunk's sums apart and splits its operands, 128 past 8 accumulators).
+template <typename E = void>
 __host__ __device__ constexpr int gm_min_blocks(int nt8) {
-  return nt8 > 8 ? 2 : 3;
+  return nt8 > (kTf32<E> ? 2 : 8) ? 2 : 3;
 }
 
 // A gather tile is tile_h x tile_w positions of the output plane (8 x 16,
@@ -198,23 +273,40 @@ __host__ __device__ inline int pos_tiles(int T, int F) {
   return ((T + tile_h(F) - 1) / tile_h(F)) * ((F + tile_w(F) - 1) / tile_w(F));
 }
 
-// Dynamic shared memory of a gather kernel: the weights of a chunk, then
-// the window and its zero row (the epilogue reuses the weights' bytes).
-template <class G>
+// Dynamic shared memory of a gather kernel: the weights of a chunk (one
+// plane, or float32's two), then the window and its zero row (the
+// epilogue reuses the weights' bytes).
+template <class G, typename E = void>
 __host__ __device__ constexpr size_t gather_smem(int bn, int tw) {
-  return (size_t)GM_UNITS * unit_bytes(bn) +
+  return (size_t)kPlanes<E> * GM_UNITS * unit_bytes(bn) +
          (size_t)((GM_POS / tw + 2) * G::width(tw) + 1) * WIN_ROW;
 }
 
-// acc[j] += A (this warp's 16 positions x the chunk's units) * B (units x
+// d += a b for a k-step: one mma of bf16 or int8 operands, or float32's
+// three TF32 passes over split operands (the small parts as, bs0, bs1).
+template <typename E, typename Acc>
+__device__ __forceinline__ void mma_step(Acc (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&as)[4], uint32_t b0,
+                                         uint32_t b1, uint32_t bs0,
+                                         uint32_t bs1) {
+  if constexpr (kTf32<E>)
+    mma3(d, a, as, b0, b1, bs0, bs1);
+  else
+    mma(d, a, b0, b1);
+}
+
+// d[j] += A (this warp's 16 positions x the chunk's units) * B (units x
 // the n8 tile j), A's row for unit u given by a_row(u) (a shared-memory
-// byte address of 16 bytes of one window row, or of the zero row).  n8
-// tiles go in pairs (ldmatrix.x4 of B), an odd last one alone (.x2), so a
-// narrow output (N = 2, 4) takes one n8 tile.
-template <int NT8, typename Acc, class ARow>
-__device__ __forceinline__ void gather_mma(Acc (&acc)[NT8][4], int n_units,
-                                           uint32_t ws, ARow a_row) {
+// byte address of 16 bytes of one window row, or of the zero row), both of
+// element type E; float32: A split in registers, B's small plane GM_UNITS
+// units after its big one.  n8 tiles go in pairs (ldmatrix.x4 of B), an
+// odd last one alone (.x2), so a narrow output (N = 2, 4) takes one n8
+// tile.
+template <int NT8, typename E, typename Acc, class ARow>
+__device__ __forceinline__ void gather_steps(Acc (&d)[NT8][4], int n_units,
+                                             uint32_t ws, ARow a_row) {
   constexpr int US = unit_bytes(8 * NT8);
+  constexpr uint32_t SMALL = GM_UNITS * US;  // B's small plane (float32)
   const int lane = threadIdx.x & 31;
   const int j = lane >> 3;
   // B: matrix j of an x4 is (unit 2s + (j & 1), channels 8 (j >> 1) + row)
@@ -222,20 +314,46 @@ __device__ __forceinline__ void gather_mma(Acc (&acc)[NT8][4], int n_units,
   const int steps = (n_units + 1) >> 1;
 #pragma unroll 2
   for (int s = 0; s < steps; ++s) {
-    uint32_t a[4];
+    uint32_t a[4], as[4];
     ldsm_x4(a_row(2 * s + (lane >> 4)), a);
+    if constexpr (kTf32<E>) split_tf32(a, a, as);
 #pragma unroll
     for (int jp = 0; jp < NT8 / 2; ++jp) {
-      uint32_t b[4];
-      ldsm_x4(b_lane + 2 * s * US + jp * 16 * 16, b);
-      mma(acc[2 * jp], a, b[0], b[1]);
-      mma(acc[2 * jp + 1], a, b[2], b[3]);
+      const uint32_t ba = b_lane + 2 * s * US + jp * 16 * 16;
+      uint32_t b[4], bs[4] = {};
+      ldsm_x4(ba, b);
+      if constexpr (kTf32<E>) ldsm_x4(ba + SMALL, bs);
+      mma_step<E>(d[2 * jp], a, as, b[0], b[1], bs[0], bs[1]);
+      mma_step<E>(d[2 * jp + 1], a, as, b[2], b[3], bs[2], bs[3]);
     }
     if constexpr ((NT8 & 1) != 0) {
-      uint32_t b0, b1;
-      ldsm_x2(b_lane + 2 * s * US + (NT8 - 1) * 8 * 16, b0, b1);
-      mma(acc[NT8 - 1], a, b0, b1);
+      const uint32_t ba = b_lane + 2 * s * US + (NT8 - 1) * 8 * 16;
+      uint32_t b0, b1, bs0 = 0, bs1 = 0;
+      ldsm_x2(ba, b0, b1);
+      if constexpr (kTf32<E>) ldsm_x2(ba + SMALL, bs0, bs1);
+      mma_step<E>(d[NT8 - 1], a, as, b0, b1, bs0, bs1);
     }
+  }
+}
+
+// acc += the chunk's products (gather_steps).  float32 sums them in fresh
+// accumulators, added to acc once at the end: the tensor cores' float32
+// sums are not rounded to nearest, so a long run drifts (with one
+// accumulator over all chunks the dgrad missed the float64 run by 1.15e-5
+// of max-abs on the H100, PERF.md); no accumulator runs longer than one
+// chunk (at most 18 k-steps, 54 mmas) and the chunks add in float32.
+template <int NT8, typename E, typename Acc, class ARow>
+__device__ __forceinline__ void gather_mma(Acc (&acc)[NT8][4], int n_units,
+                                           uint32_t ws, ARow a_row) {
+  if constexpr (kTf32<E>) {
+    float part[NT8][4] = {};
+    gather_steps<NT8, E>(part, n_units, ws, a_row);
+#pragma unroll
+    for (int j = 0; j < NT8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
+  } else {
+    gather_steps<NT8, E>(acc, n_units, ws, a_row);
   }
 }
 
@@ -254,36 +372,46 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // one group of reduced channels) = wp[gbase + g][G::tap(i)][o0 + o] of the
 // packed weights [groups][9][n_out][16 bytes] (ops/kernels/tc_pack.py),
 // zero for o0 + o >= n_out; unit NTAP * groups (the pad of an odd count)
-// zero.  Asynchronous: the caller waits (cp_async_wait_all) and
-// synchronises before reading.
-template <int BN, class G>
+// zero.  PLANES = 2 (float32): the small plane, `plane` 16-byte units
+// after the big one in wp, goes GM_UNITS units after it in ws.
+// Asynchronous: the caller waits (cp_async_wait_all) and synchronises
+// before reading.
+template <int BN, class G, int PLANES>
 __device__ __forceinline__ void stage_weights_tc(unsigned char* ws,
-                                                 const void* wp, int n_out,
+                                                 const void* wp,
+                                                 size_t plane, int n_out,
                                                  int o0, int gbase,
                                                  int groups) {
   constexpr int US = unit_bytes(BN);
   const uint4* w16 = static_cast<const uint4*>(wp);
   const uint32_t ws_s = smem_addr(ws);
-  for (int i = threadIdx.x; i < groups * G::NTAP * BN; i += GM_THREADS) {
-    const int u = i / BN;
-    const int o = i - u * BN;
+  const int per = groups * G::NTAP * BN;
+  for (int i = threadIdx.x; i < PLANES * per; i += GM_THREADS) {
+    const int pl = PLANES > 1 ? i / per : 0;
+    const int k = i - pl * per;
+    const int u = k / BN;
+    const int o = k - u * BN;
     const int g = u / G::NTAP;
     const int tap = G::tap(u - g * G::NTAP);
     const bool ok = o0 + o < n_out;
-    cp_async16(ws_s + u * US + o * 16,
-               w16 + ((size_t)(gbase + g) * 9 + tap) * n_out +
+    cp_async16(ws_s + (pl * GM_UNITS + u) * US + o * 16,
+               w16 + pl * plane + ((size_t)(gbase + g) * 9 + tap) * n_out +
                    (ok ? o0 + o : 0),
                ok);
   }
   if ((groups * G::NTAP) & 1) {
-    uint4* z = reinterpret_cast<uint4*>(ws + groups * G::NTAP * US);
-    for (int i = threadIdx.x; i < BN; i += GM_THREADS)
-      z[i] = make_uint4(0, 0, 0, 0);
+    for (int i = threadIdx.x; i < PLANES * BN; i += GM_THREADS) {
+      const int pl = i / BN;
+      reinterpret_cast<uint4*>(
+          ws + (pl * GM_UNITS + groups * G::NTAP) * US)[i - pl * BN] =
+          make_uint4(0, 0, 0, 0);
+    }
   }
 }
 
-// Stage a window of the reduced tensor channels-last, in elements E (bf16,
-// 8 a group, or int8, 16 a group): window position i = (wr, wc) of rows x
+// Stage a window of the reduced tensor channels-last, in elements E
+// (float32, 4 a group, stored as loaded; bf16, 8 a group; or int8, 16 a
+// group): window position i = (wr, wc) of rows x
 // sw is plane position (t0 - 1 + wr, lo + wc); its group g (< groups <=
 // GMAX) holds channels EPG g .. EPG g + EPG - 1 of the chunk, load(k,
 // plane index) for k < rk and zero past rk or outside the plane (int8:
@@ -313,7 +441,10 @@ __device__ __forceinline__ void stage_window(unsigned char* win,
       for (int e = 0; e < EPG; ++e)
         v[e] = (in && EPG * g + e < rk) ? load(EPG * g + e, p) : 0.f;
       uint4 q;
-      if constexpr (EPG == 8) {
+      if constexpr (EPG == 4) {
+        q = make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                       __float_as_uint(v[2]), __float_as_uint(v[3]));
+      } else if constexpr (EPG == 8) {
         q = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
                        pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
       } else {
@@ -330,7 +461,8 @@ __device__ __forceinline__ void stage_window(unsigned char* win,
 // One chunk of a gather conv over geometry G: the block's tile has tile_w
 // = tw columns from output column f0 and rows from t0 of its plane; the
 // chunk is `groups` groups of the packed weights wp from group gbase
-// (n_out output channels, the block's from o0) and `rk` channels of the
+// (n_out output channels, the block's from o0; float32: the big plane,
+// the small one `plane` 16-byte units after it) and `rk` channels of the
 // source plane T x F, read through load(k, plane index) (see
 // stage_window).  Stages both (synchronising before, so the previous
 // chunk's or nothing's reads are done) and adds the chunk's products to
@@ -339,21 +471,22 @@ template <class G, int NT8, typename E, typename Acc, class Load>
 __device__ __forceinline__ void gather_chunk(Acc (&acc)[NT8][4],
                                              unsigned char* smem, int tw,
                                              int t0, int f0, const void* wp,
-                                             int n_out, int o0, int gbase,
-                                             int groups, int rk, int T,
-                                             int F, Load load) {
+                                             size_t plane, int n_out, int o0,
+                                             int gbase, int groups, int rk,
+                                             int T, int F, Load load) {
   constexpr int BN = 8 * NT8;
   const int th = GM_POS / tw;
   const int sw = G::width(tw);
   const int n_win = (th + 2) * sw;
   const int lo = G::lo(f0);
   unsigned char* ws = smem;
-  unsigned char* win = smem + GM_UNITS * unit_bytes(BN);
+  unsigned char* win = smem + kPlanes<E> * GM_UNITS * unit_bytes(BN);
   __syncthreads();  // the previous chunk is consumed
   for (int i = threadIdx.x; i < WIN_ROW / 16; i += GM_THREADS)
     reinterpret_cast<uint4*>(win + n_win * WIN_ROW)[i] =
         make_uint4(0, 0, 0, 0);
-  stage_weights_tc<BN, G>(ws, wp, n_out, o0, gbase, groups);
+  stage_weights_tc<BN, G, kPlanes<E>>(ws, wp, plane, n_out, o0, gbase,
+                                      groups);
   stage_window<GM_THREADS, E>(win, WIN_ROW, th + 2, sw, t0, lo, T, F,
                               groups, rk, load);
   cp_async_wait_all();
@@ -366,7 +499,7 @@ __device__ __forceinline__ void gather_chunk(Acc (&acc)[NT8][4],
   const int mr = m / tw;
   const int mf = f0 + m - mr * tw;
   const int n_units = groups * G::NTAP;
-  gather_mma<NT8>(acc, n_units, smem_addr(ws), [&](int u) -> uint32_t {
+  gather_mma<NT8, E>(acc, n_units, smem_addr(ws), [&](int u) -> uint32_t {
     if (u >= n_units) return zero_s;
     const int g = u / G::NTAP;
     const int tap = G::tap(u - G::NTAP * g);

@@ -295,7 +295,7 @@ dense_stack_tc_kernel(const Sources<bf16> src, int C,
       const int c_first = coff + cb;
       const bf16* xp = xsrc + ((size_t)b * cs + cb) * TF;
       tc::gather_chunk<tc::Geo<tc::M_SAME>, NT8, bf16>(
-          acc, tc_smem, tw, t0, f0, w, N, o0, goff + cb / 8, (rk + 7) / 8,
+          acc, tc_smem, tw, t0, f0, w, 0, N, o0, goff + cb / 8, (rk + 7) / 8,
           rk, Tn, F, [&](int k, int p) {
             const int ch = b * C + c_first + k;
             return (tc::bf16_at(xp + (size_t)k * TF + p) - __ldg(mean + ch)) *

@@ -203,7 +203,7 @@ dense_stack_int8_tc_kernel(const bf16* __restrict__ x0, int c0,
       const int rk = min(CPG * tc::GMAX, cs - cb);
       const bf16* xp = xsrc + ((size_t)b * cs + cb) * TF;
       tc::gather_chunk<tc::Geo<tc::M_SAME>, NT8, signed char>(
-          acc, tc_smem, tw, t0, f0, wb, N, o0, (s ? g0 : 0) + cb / CPG,
+          acc, tc_smem, tw, t0, f0, wb, 0, N, o0, (s ? g0 : 0) + cb / CPG,
           (rk + CPG - 1) / CPG, rk, T, F, [&](int k, int p) {
             return quantize(tc::bf16_at(xp + (size_t)k * TF + p),
                             __ldg(sc + cb + k));

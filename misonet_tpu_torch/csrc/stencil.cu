@@ -27,39 +27,39 @@
 // kf) / s] for the transpose modes, w[n, c, kt, kf] * xn[t + kt - 1,
 // s fo + kf] for the conv modes.
 //
-// float32 mode (stencil_kernel): CUDA-core FMAs.  Weights come as
-// Conv2d's [N, C, 3, 3] for the conv modes and as the torch
-// ConvTranspose2d weight [C, N, 3, 3] for the transpose modes, read in
-// place (no copy, no flip).  Bound on the H100: float32 FMA throughput and
-// its latency hiding, at C = 12..64 input channels and N = 4..32 outputs.
-// 256 threads hold 16 channels x 2 positions each and read their inputs
-// straight from global memory (L1-resident), with the tap's bounds check
-// per load; registers are capped so 3 blocks share an SM (8 % faster than
-// 2 in a sweep on the H100, PERF.md).  Weights and the two-pass statistics
-// as in conv_common.cuh.  The final layer's N = 4 fills 4 of the block's
-// 32 channel slots; it is 1 of the 10 launches per forward.
-//
-// bfloat16 mode (stencil_tc_kernel): tensor cores, `mma.sync m16n8k16`
-// bf16 x bf16 -> float32, the gather conv of conv_mma.cuh that
-// dense_stack.cu's bf16 mode runs, over each mode's map: enc0 M_SHIFT,
-// down M_DOUBLE, final M_SHIFT_T (the maps stencil_bwd.cu's wgrad reads
-// them through), and for `up` its two parity planes (UpGeo below: 6 taps
-// per unit group on the even plane, 3 on the odd, no wrong-parity zero
-// unit).  Rows are a 2-D tile of 128 positions of the (plane of the)
-// output, columns BN = 8..32 output channels (N on the mma's 8-wide side,
-// an odd count of n8 tiles allowed: MISO1's final N = 4 and MISO3's N = 2
-// fill one n8 tile, N = 24 three), the reduction over units of 8 input
-// channels at one tap.  The window is staged channels-last, normalized
-// and rounded on load to bf16((x - mean) * scale) with a zero halo (enc0:
-// the raw input), the rounding point of the FMA loop and of
-// stencil_plain; the weights arrive packed [G, 9, N, 8] by the wrapper
+// Both modes run one kernel, stencil_tc_kernel, on the tensor cores: the
+// gather conv of conv_mma.cuh that dense_stack.cu's bf16 mode runs, over
+// each mode's map: enc0 M_SHIFT, down M_DOUBLE, final M_SHIFT_T (the maps
+// stencil_bwd.cu's wgrad reads them through), and for `up` its two parity
+// planes (UpGeo below: 6 taps per unit group on the even plane, 3 on the
+// odd, no wrong-parity zero unit).  Rows are a 2-D tile of 128 positions
+// of the (plane of the) output, columns BN = 8..32 output channels (N on
+// the mma's 8-wide side, an odd count of n8 tiles allowed: MISO1's final
+// N = 4 and MISO3's N = 2 fill one n8 tile, N = 24 three), the reduction
+// over units of one 16-byte group of input channels at one tap.  The
+// window is staged channels-last, normalized on load to (x - mean) *
+// scale with a zero halo (enc0: the raw input), the rounding point of
+// stencil_plain; the weights arrive packed [G, 9, N, group] by the wrapper
 // (tc_pack.py; transposed for up and final) and are copied by cp.async.
 // Epilogue through shared memory: bias, ELU and the fixed-order
 // statistics partials for down and up, bias alone for enc0 and final, the
-// bf16 store; then the statistics' second pass (launch_reduce_stats).
-// Bound on the H100: its bytes (0.045 ms over phase 11's cases); what
-// limits it, as for dense_stack's bf16 mode, is the staging of the window
-// and the epilogue's traffic, not the mmas (PERF.md).
+// store; then the statistics' second pass (launch_reduce_stats).
+//
+//   float32 ("precise"): 4 channels a group, the window stored unrounded;
+//   each product three `mma.sync m16n8k8` TF32 passes over split operands
+//   (conv_mma.cuh: big big + big small + small big, float32 sums), the
+//   window split in registers after its ldmatrix, the weights packed split
+//   (two planes, by tc_pack.cu's pack_tf32_kernel once per weight
+//   version).  Bound on the H100: the larger of its operations at a
+//   third of the TF32 rate and its bytes, 0.17 ms over phase 3's cases (chip_smoke.py; 0.30 with the 67
+//   TFLOP/s of the FMA loop this kernel replaced).  A chunk holds 16
+//   channels, so the window per unit count is the bf16 mode's.
+//   bfloat16: 8 channels a group, normalized and rounded on load to
+//   bf16((x - mean) * scale); `mma.sync m16n8k16` bf16 x bf16 -> float32;
+//   the bf16 store.  Bound on the H100: its bytes (0.045 ms over phase
+//   11's cases); what limits it, as for dense_stack's bf16 mode, is the
+//   staging of the window and the epilogue's traffic, not the mmas
+//   (PERF.md).
 
 #include <algorithm>
 #include <type_traits>
@@ -71,167 +71,6 @@ namespace misonet {
 namespace {
 
 enum Mode { ENC0 = 0, DOWN = 1, UP = 2, FINAL = 3 };
-
-constexpr int PT = 2;                    // output positions per thread
-constexpr int LANES = POS_TILE / PT;     // position lanes per channel half
-constexpr int THREADS = 2 * LANES;       // two 16-channel halves
-constexpr int CK = 16;                   // input channels staged per round
-constexpr int MIN_BLOCKS = 3;            // per SM: caps registers at 80
-
-// Input (ti, fi) read by tap (kt, kf) of the output at row t and plane
-// column m (the output column itself, except for `up`, where m indexes the
-// block's phase plane and the caller skips taps of the other parity).
-template <int MODE>
-__device__ __forceinline__ bool tap_src(int t, int m, int kt, int kf, int T,
-                                        int Fin, int& ti, int& fi) {
-  if (MODE == ENC0 || MODE == DOWN) {
-    ti = t + kt - 1;
-    fi = (MODE == DOWN ? 2 * m : m) + kf;
-  } else {
-    ti = t + 1 - kt;
-    fi = MODE == UP ? m - (kf >> 1) : m - kf;
-  }
-  return ti >= 0 && ti < T && fi >= 0 && fi < Fin;
-}
-
-// Position tiles of one (batch, channel tile): `up` tiles its even-column
-// plane (Fin + 1 columns) and then its odd-column plane (Fin columns).
-__host__ __device__ inline int even_tiles(int T, int Fin) {
-  return (T * (Fin + 1) + POS_TILE - 1) / POS_TILE;
-}
-
-__host__ __device__ inline int num_tiles(int mode, int T, int Fin, int Fout) {
-  if (mode == UP)
-    return even_tiles(T, Fin) + (T * Fin + POS_TILE - 1) / POS_TILE;
-  return (T * Fout + POS_TILE - 1) / POS_TILE;
-}
-
-template <int MODE>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-stencil_kernel(const float* __restrict__ x, const float* __restrict__ scale,
-               const float* __restrict__ mean, const float* __restrict__ w,
-               const float* __restrict__ bias, float* __restrict__ y,
-               float* __restrict__ part, int C, int T, int Fin, int Fout,
-               int N) {
-  constexpr bool kAct = MODE == DOWN || MODE == UP;  // ELU + stats
-  __shared__ __align__(16) float ws[CK][9][WS_ROW];
-  const int half = threadIdx.x / LANES;
-  const int lane = threadIdx.x % LANES;
-  const int n0 = blockIdx.y * NB;
-  const int b = blockIdx.z;
-  const int B = gridDim.z;
-  const int TFo = T * Fout;
-
-  // the block's plane: all output columns, or one parity of them for `up`
-  int tile = blockIdx.x, phase = 0, Fpl = Fout;
-  if (MODE == UP) {
-    const int ne = even_tiles(T, Fin);
-    phase = tile >= ne;
-    Fpl = phase ? Fin : Fin + 1;
-    tile -= phase ? ne : 0;
-  }
-  int pos[PT], pt[PT], pm[PT];  // output index, row, plane column
-  bool pv[PT];
-#pragma unroll
-  for (int j = 0; j < PT; ++j) {
-    const int p = tile * POS_TILE + j * LANES + lane;
-    pv[j] = p < T * Fpl;
-    pt[j] = p / Fpl;
-    pm[j] = p - pt[j] * Fpl;
-    pos[j] = pt[j] * Fout + (MODE == UP ? 2 * pm[j] + phase : pm[j]);
-  }
-
-  float acc[NT][PT];
-#pragma unroll
-  for (int i = 0; i < NT; ++i)
-#pragma unroll
-    for (int j = 0; j < PT; ++j) acc[i][j] = 0.f;
-
-  for (int cb = 0; cb < C; cb += CK) {
-    const int ck = min(CK, C - cb);
-    __syncthreads();
-    stage_weights<CK, THREADS, MODE == UP || MODE == FINAL>(ws, w, N, C, n0,
-                                                            cb, ck);
-    __syncthreads();
-    for (int k = 0; k < ck; ++k) {
-      const int c = cb + k;
-      const float sc = scale ? scale[b * C + c] : 1.f;
-      const float mu = mean ? mean[b * C + c] : 0.f;
-      const float* xp = x + ((size_t)b * C + c) * T * Fin;
-      float xv[9][PT];
-#pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        if (MODE == UP && ((tap % 3) & 1) != phase) continue;
-#pragma unroll
-        for (int j = 0; j < PT; ++j) {
-          int ti, fi;
-          const bool ok = pv[j] && tap_src<MODE>(pt[j], pm[j], tap / 3,
-                                                 tap % 3, T, Fin, ti, fi);
-          xv[tap][j] = ok ? (__ldg(xp + ti * Fin + fi) - mu) * sc : 0.f;
-        }
-      }
-#pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        if (MODE == UP && ((tap % 3) & 1) != phase) continue;
-        fma_tap<PT>(acc, &ws[k][tap][half * NT], xv[tap]);
-      }
-    }
-  }
-
-  float su[NT], sq[NT];
-#pragma unroll
-  for (int i = 0; i < NT; ++i) {
-    su[i] = 0.f;
-    sq[i] = 0.f;
-    const int n = n0 + half * NT + i;
-    if (n >= N) continue;
-#pragma unroll
-    for (int j = 0; j < PT; ++j) {
-      if (!pv[j]) continue;
-      float v = acc[i][j] + bias[n];
-      if (kAct) {
-        v = elu(v);
-        su[i] += v;
-        sq[i] += v * v;
-      }
-      y[((size_t)b * N + n) * TFo + pos[j]] = v;
-    }
-  }
-  if (kAct)
-    block_stats<THREADS>(su, sq, part, b, B, n0, N, blockIdx.x, gridDim.x);
-}
-
-// Launch a float32 stencil call (see the C entry points below).
-int launch_stencil(int mode, const float* x, const float* scale,
-                   const float* mean, const float* w, const float* bias,
-                   float* y, float* part, float* sums, float* sqs, int B,
-                   int C, int Tn, int Fin, int Fout, int N, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int ntiles = num_tiles(mode, Tn, Fin, Fout);
-  const dim3 grid(ntiles, (N + NB - 1) / NB, B);
-  switch (mode) {
-#define MISONET_STENCIL(M)                                                \
-  case M:                                                                 \
-    stencil_kernel<M><<<grid, THREADS, 0, st>>>(x, scale, mean, w, bias,  \
-                                                y, part, C, Tn, Fin, Fout, \
-                                                N);                       \
-    break;
-    MISONET_STENCIL(ENC0)
-    MISONET_STENCIL(DOWN)
-    MISONET_STENCIL(UP)
-    MISONET_STENCIL(FINAL)
-#undef MISONET_STENCIL
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  if (mode == DOWN || mode == UP)
-    return (int)launch_reduce_stats(part, sums, sqs, B * N, ntiles, st);
-  return 0;
-}
-
-// ---- the bfloat16 mode on tensor cores --------------------------------------
 
 using bf16 = __nv_bfloat16;
 
@@ -275,17 +114,19 @@ __host__ __device__ inline int plane_cols(int P, int Fin, int Fout) {
 }
 
 // One block's tile (number `tile` of its plane) of plane P: tc::GM_POS
-// positions x BN = 8 NT8 output channels of one batch element; smem the
-// kernel's dynamic shared memory.
-template <int P, int NT8>
+// positions x BN = 8 NT8 output channels of one batch element, in storage
+// type E (float or bf16); smem the kernel's dynamic shared memory.
+template <int P, int NT8, typename E>
 __device__ __forceinline__ void stencil_tc_tile(
-    unsigned char* smem, const bf16* __restrict__ x,
+    unsigned char* smem, const E* __restrict__ x,
     const float* __restrict__ scale, const float* __restrict__ mean,
-    const bf16* __restrict__ w, const float* __restrict__ bias,
-    bf16* __restrict__ y, float* __restrict__ part, int C, int T, int Fin,
+    const E* __restrict__ w, const float* __restrict__ bias,
+    E* __restrict__ y, float* __restrict__ part, int C, int T, int Fin,
     int Fout, int N, int tile) {
   constexpr bool kAct = P == P_DOWN || P == P_UP_EVEN || P == P_UP_ODD;
   constexpr int BN = 8 * NT8;
+  constexpr int EPG = tc::GROUP_BYTES / sizeof(E);  // channels a group
+  constexpr int CH = EPG * tc::GMAX;                // channels a chunk
   const int Fp = plane_cols(P, Fin, Fout);
   const int tw = tc::tile_w(Fp);
   const int ntc = (Fp + tw - 1) / tw;
@@ -294,16 +135,18 @@ __device__ __forceinline__ void stencil_tc_tile(
   const int o0 = blockIdx.y * BN;
   const int b = blockIdx.z;
   const int TFi = T * Fin;
+  // float32: the weights' small plane after the big one
+  const size_t plane = (size_t)((C + EPG - 1) / EPG) * 9 * N;
   float acc[NT8][4] = {};
 
-  for (int cb = 0; cb < C; cb += 8 * tc::GMAX) {
-    const int rk = min(8 * tc::GMAX, C - cb);
-    const bf16* xp = x + ((size_t)b * C + cb) * TFi;
+  for (int cb = 0; cb < C; cb += CH) {
+    const int rk = min(CH, C - cb);
+    const E* xp = x + ((size_t)b * C + cb) * TFi;
     const int ch = b * C + cb;
-    tc::gather_chunk<PlaneGeo<P>, NT8, bf16>(
-        acc, smem, tw, t0, m0, w, N, o0, cb / 8, (rk + 7) / 8, rk, T, Fin,
-        [&](int k, int p) {
-          const float v = tc::bf16_at(xp + (size_t)k * TFi + p);
+    tc::gather_chunk<PlaneGeo<P>, NT8, E>(
+        acc, smem, tw, t0, m0, w, plane, N, o0, cb / EPG,
+        (rk + EPG - 1) / EPG, rk, T, Fin, [&](int k, int p) {
+          const float v = ldg_f32(xp + (size_t)k * TFi + p);
           if (P == P_ENC0) return v;  // identity normalization
           return (v - __ldg(mean + ch + k)) * __ldg(scale + ch + k);
         });
@@ -325,19 +168,19 @@ __device__ __forceinline__ void stencil_tc_tile(
       });
 }
 
-// Blocks of the tensor-core kernel along x: the plane's position tiles, or
-// for up the even plane's and then the odd plane's.
+// Blocks of the kernel along x: the plane's position tiles, or for up the
+// even plane's and then the odd plane's.
 __host__ __device__ inline int tc_tiles(int mode, int T, int Fin, int Fout) {
   if (mode == UP)
     return tc::pos_tiles(T, Fin + 1) + tc::pos_tiles(T, Fin);
   return tc::pos_tiles(T, Fout);
 }
 
-template <int MODE, int NT8>
-__global__ void __launch_bounds__(tc::GM_THREADS, tc::gm_min_blocks(NT8))
-stencil_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ scale,
-                  const float* __restrict__ mean, const bf16* __restrict__ w,
-                  const float* __restrict__ bias, bf16* __restrict__ y,
+template <int MODE, int NT8, typename E>
+__global__ void __launch_bounds__(tc::GM_THREADS, tc::gm_min_blocks<E>(NT8))
+stencil_tc_kernel(const E* __restrict__ x, const float* __restrict__ scale,
+                  const float* __restrict__ mean, const E* __restrict__ w,
+                  const float* __restrict__ bias, E* __restrict__ y,
                   float* __restrict__ part, int C, int T, int Fin, int Fout,
                   int N) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
@@ -356,35 +199,35 @@ stencil_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ scale,
   }
 }
 
-template <int MODE, int NT8>
-cudaError_t launch_stencil_tc(const bf16* x, const float* scale,
-                              const float* mean, const bf16* w,
-                              const float* bias, bf16* y, float* part,
-                              int B, int C, int T, int Fin, int Fout, int N,
+template <int MODE, int NT8, typename E>
+cudaError_t launch_stencil_tc(const E* x, const float* scale,
+                              const float* mean, const E* w,
+                              const float* bias, E* y, float* part, int B,
+                              int C, int T, int Fin, int Fout, int N,
                               cudaStream_t st) {
   constexpr int BN = 8 * NT8;
   size_t smem;
   if constexpr (MODE == UP) {
     smem = std::max(
-        tc::gather_smem<UpGeo<0>>(BN, tc::tile_w(Fin + 1)),
-        tc::gather_smem<UpGeo<1>>(BN, tc::tile_w(Fin)));
+        tc::gather_smem<UpGeo<0>, E>(BN, tc::tile_w(Fin + 1)),
+        tc::gather_smem<UpGeo<1>, E>(BN, tc::tile_w(Fin)));
   } else {
-    smem = tc::gather_smem<PlaneGeo<MODE>>(BN, tc::tile_w(Fout));
+    smem = tc::gather_smem<PlaneGeo<MODE>, E>(BN, tc::tile_w(Fout));
   }
   cudaError_t e = cudaFuncSetAttribute(
-      stencil_tc_kernel<MODE, NT8>,
+      stencil_tc_kernel<MODE, NT8, E>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(tc_tiles(MODE, T, Fin, Fout), (N + BN - 1) / BN, B);
-  stencil_tc_kernel<MODE, NT8><<<grid, tc::GM_THREADS, smem, st>>>(
+  stencil_tc_kernel<MODE, NT8, E><<<grid, tc::GM_THREADS, smem, st>>>(
       x, scale, mean, w, bias, y, part, C, T, Fin, Fout, N);
   return cudaGetLastError();
 }
 
-template <int MODE>
-cudaError_t launch_stencil_tc_mode(const bf16* x, const float* scale,
-                                   const float* mean, const bf16* w,
-                                   const float* bias, bf16* y, float* part,
+template <int MODE, typename E>
+cudaError_t launch_stencil_tc_mode(const E* x, const float* scale,
+                                   const float* mean, const E* w,
+                                   const float* bias, E* y, float* part,
                                    int B, int C, int T, int Fin, int Fout,
                                    int N, cudaStream_t st) {
   switch (tc::pick_nt8(N, 4, true)) {
@@ -402,12 +245,14 @@ cudaError_t launch_stencil_tc_mode(const bf16* x, const float* scale,
   }
 }
 
-// Both passes of the bfloat16 mode: the tensor-core conv pass, then for
-// down and up the statistics' fixed-order pass over its tc_tiles partials.
-int launch_stencil(int mode, const bf16* x, const float* scale,
-                   const float* mean, const bf16* w, const float* bias,
-                   bf16* y, float* part, float* sums, float* sqs, int B,
-                   int C, int Tn, int Fin, int Fout, int N, void* stream) {
+// Both passes of a stencil call in storage type E: the tensor-core conv
+// pass, then for down and up the statistics' fixed-order pass over its
+// tc_tiles partials.
+template <typename E>
+int launch_stencil(int mode, const E* x, const float* scale,
+                   const float* mean, const E* w, const float* bias, E* y,
+                   float* part, float* sums, float* sqs, int B, int C,
+                   int Tn, int Fin, int Fout, int N, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (mode) {
@@ -433,15 +278,14 @@ int launch_stencil(int mode, const bf16* x, const float* scale,
 }  // namespace misonet
 
 // C entry points.  All tensors contiguous, on the current device; x and y
-// float32 (misonet_stencil) or bfloat16 (misonet_stencil_bf16), the rest
-// float32 except the bf16 mode's weights:
+// float32 (misonet_stencil) or bfloat16 (misonet_stencil_bf16), w of their
+// type, the rest float32:
 //   x [B, C, T, Fin]; scale, mean [B, C] (NULL for mode 0: identity);
-//   float32: w [N, C, 3, 3] for modes 0-1, [C, N, 3, 3] for modes 2-3;
-//   bfloat16: w packed by ops/kernels/tc_pack.py with output n and reduced
-//   c (transposed for modes 2-3), [ceil(C/8), 9, N, 8];
+//   w packed by ops/kernels/tc_pack.py with output n and reduced c
+//   (transposed for modes 2-3): float32 [2, ceil(C/4), 9, N, 4] (TF32 big
+//   and small planes), bfloat16 [ceil(C/8), 9, N, 8];
 //   bias [N]; y [B, N, T, Fout];
-//   part [2, B, N, ntiles] scratch with ntiles = misonet_stencil_tiles()
-//   (float32) or misonet_stencil_tc_tiles() (bfloat16),
+//   part [2, B, N, ntiles] scratch with ntiles = misonet_stencil_tc_tiles(),
 //   and sums, sqs [B, N] for modes 1-2 (NULL otherwise).
 // Return cudaGetLastError() after the launches (0 on success); an unknown
 // mode returns cudaErrorInvalidValue.
@@ -464,12 +308,8 @@ extern "C" int misonet_stencil_bf16(int mode, const __nv_bfloat16* x,
                                  sqs, B, C, T, Fin, Fout, N, stream);
 }
 
-// Position tiles per (batch, channel tile) of a stencil call: the size of
-// the last axis of its `part` scratch, float32 and bfloat16 mode.
-extern "C" int misonet_stencil_tiles(int mode, int T, int Fin, int Fout) {
-  return misonet::num_tiles(mode, T, Fin, Fout);
-}
-
+// Position tiles per (batch, channel tile) of a stencil call in either
+// mode: the size of the last axis of its `part` scratch.
 extern "C" int misonet_stencil_tc_tiles(int mode, int T, int Fin, int Fout) {
   return misonet::tc_tiles(mode, T, Fin, Fout);
 }

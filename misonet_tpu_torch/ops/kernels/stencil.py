@@ -15,10 +15,11 @@ instances, selected by ``mode``:
 
 Conv weights are ``[N, C, 3, 3]`` (Conv2d), transpose weights
 ``[C, N, 3, 3]`` (ConvTranspose2d); time padding is 1 and frequency padding
-0 in all modes.  CUDA source: ``misonet_tpu_torch/csrc/stencil.cu``: the
-float32 mode on CUDA-core FMAs (``stencil_kernel``), the bfloat16 mode on
-the tensor cores (``stencil_tc_kernel``, weights packed by
-``tc_pack.packed``, cached per weight tensor and version).
+0 in all modes.  CUDA source: ``misonet_tpu_torch/csrc/stencil.cu``: both
+modes on the tensor cores (``stencil_tc_kernel``; float32 as three TF32
+passes over split operands, ``tc_pack.tf32_split``), weights packed by
+``tc_pack.packed`` (float32: 4 channels a group, as TF32 big and small
+planes; bf16: 8 a group), cached per weight tensor and version.
 
 The dtype mode follows ``x``: float32 throughout, or ``x``, ``w`` and ``y``
 bfloat16 with ``bias``, ``scale``, ``mean`` and the sums float32, rounded
@@ -131,12 +132,9 @@ def stencil(x, w, bias, scale, mean, mode: str):
         check("mean", mean, (b, c), torch.float32)
 
     lib = library()
-    if bf16:
-        entry, tiles = lib.misonet_stencil_bf16, lib.misonet_stencil_tc_tiles
-        w = packed(w, (c,), transpose=mode in _TRANSPOSE, dtype=dtype)
-    else:
-        entry, tiles = lib.misonet_stencil, lib.misonet_stencil_tiles
-    ntiles = tiles(MODES[mode], t, f_in, f_out)
+    entry = lib.misonet_stencil_bf16 if bf16 else lib.misonet_stencil
+    w = packed(w, (c,), transpose=mode in _TRANSPOSE, dtype=dtype)
+    ntiles = lib.misonet_stencil_tc_tiles(MODES[mode], t, f_in, f_out)
     y = torch.empty((b, n, t, f_out), device=device, dtype=dtype)
     act = mode in _ACT
     part = torch.empty((2, b, n, ntiles), device=device) if act else None
@@ -173,7 +171,6 @@ def library() -> ctypes.CDLL:
             _I, _I, _I, _I, _I, _I, _P,
         ]
         entry.restype = _I
-    for tiles in (lib.misonet_stencil_tiles, lib.misonet_stencil_tc_tiles):
-        tiles.argtypes = [_I, _I, _I, _I]
-        tiles.restype = _I
+    lib.misonet_stencil_tc_tiles.argtypes = [_I, _I, _I, _I]
+    lib.misonet_stencil_tc_tiles.restype = _I
     return lib

@@ -21,10 +21,12 @@ are float32 (the parameters stay float32).  The bfloat16 mode multiplies
 bfloat16 operands (the weights and cotangents for the dgrad; the forward's
 bf16-rounded normalized input ``bf16((x - mean) * scale)`` and the
 cotangents for the wgrad) and sums in float32; ``dx`` is rounded for the
-store, ``dscale``/``dmean`` come from the float32 dgrad.  The float32 mode
-runs CUDA-core FMAs; the bfloat16 mode runs its products on the tensor
-cores, its dgrad reading the weight packed by ``tc_pack.packed`` (output
-channel c, reduced channel n; cached per weight tensor and version).
+store, ``dscale``/``dmean`` come from the float32 dgrad.  Both modes run
+their products on the tensor cores (float32 as three TF32 passes over
+split operands, ``tc_pack.tf32_split``), the dgrad reading the weight
+packed by ``tc_pack.packed`` (output channel c, reduced channel n;
+float32: 4 channels a group, as TF32 big and small planes; bf16: 8 a
+group; cached per weight tensor and version).
 
 ``stencil_bwd`` launches the kernel for CUDA tensors (raising on anything it
 does not take, or on a refused launch) and runs ``stencil_bwd_plain`` for
@@ -42,7 +44,7 @@ from torch.nn.grad import conv2d_input, conv2d_weight
 
 from misonet_tpu_torch.ops.kernels import tc_pack
 from misonet_tpu_torch.ops.kernels.dense_stack import (
-    DTYPES, check_tensor, pos_tiles, library as dense_stack_library)
+    DTYPES, check_tensor, library as dense_stack_library)
 from misonet_tpu_torch.ops.kernels.stencil import out_bins
 
 _P = ctypes.c_void_p
@@ -161,21 +163,21 @@ def stencil_bwd(g, xs, w, scale, mean, mode: str, need_dx: bool = True,
     bf16 = dtype == torch.bfloat16
     entry = lib.misonet_stencil_bwd_bf16 if bf16 else lib.misonet_stencil_bwd
     dxs = tuple(torch.empty_like(x) for x in xs) if need_dx else None
-    ntiles = pos_tiles(lib, bf16, t, f_in)
+    ntiles = lib.misonet_tc_pos_tiles(t, f_in)
     dpart = (torch.empty((2, b, c, ntiles), device=device) if stats
              else None)
     sg = torch.empty((b, c), device=device) if stats else None
     sgx = torch.empty((b, c), device=device) if stats else None
-    splits = (lib.misonet_stencil_bwd_bf16_splits(n, c, b, t, f_out) if bf16
-              else lib.misonet_stencil_bwd_splits(n, c, b * t * f_out))
+    splits = (lib.misonet_stencil_bwd_bf16_splits if bf16
+              else lib.misonet_stencil_bwd_splits)(n, c, b, t, f_out)
     wpart = torch.empty((splits, n, 9 * c + 1), device=device)
     dw = torch.empty(w.shape, device=device)
     dbias = torch.empty((n,), device=device)
 
-    # the bf16 dgrad reads the weight packed for its tensor cores, output
+    # the dgrad reads the weight packed for its tensor cores, output
     # channel c and reduced channel n
     wk = (tc_pack.packed(w, (n,), transpose=mode not in _TRANSPOSE)
-          if bf16 and need_dx else w)
+          if need_dx else w)
 
     def ptr(v):
         return v.data_ptr() if v is not None else None
@@ -216,8 +218,8 @@ def library() -> ctypes.CDLL:
             _P, _P, _I, _I, _I, _I, _P,
         ]
         entry.restype = _I
-    lib.misonet_stencil_bwd_splits.argtypes = [_I, _I, _I]
-    lib.misonet_stencil_bwd_splits.restype = _I
-    lib.misonet_stencil_bwd_bf16_splits.argtypes = [_I, _I, _I, _I, _I]
-    lib.misonet_stencil_bwd_bf16_splits.restype = _I
+    for splits in (lib.misonet_stencil_bwd_splits,
+                   lib.misonet_stencil_bwd_bf16_splits):
+        splits.argtypes = [_I, _I, _I, _I, _I]
+        splits.restype = _I
     return lib

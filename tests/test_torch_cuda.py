@@ -15,7 +15,11 @@ modes: the plain version rounds at the kernel's points, so only the float32
 sums' order differs; a bf16-stored output (y, acc_out) may then round one
 ulp the other way: 1e-2 of max-abs; the float32 statistics 1e-4.  int8:
 the integer sums are identical, so acc_out is bit-identical and y within
-one bf16 ulp (the ELU's expm1 may differ in the last float32 bit)."""
+one bf16 ulp (the ELU's expm1 may differ in the last float32 bit).  The
+float32 stencil and stencil_bwd run three TF32 passes on the tensor
+cores: besides 1e-4 of their plain versions they are held to 1e-5 of
+max-abs of the float64 run (one TF32 pass would miss it at about 1e-3),
+and their outputs repeat bit for bit."""
 
 import dataclasses
 
@@ -296,6 +300,199 @@ def test_stencil_bwd_kernel_matches_plain(cuda, mode, widths, n, f_in, t):
                 _close(gi, ri)
         else:
             _close(g, r)
+
+
+F64_ATOL = 1e-5   # float32 kernels vs their plain version run in float64
+
+
+def _f64(v):
+    """The arguments widened to float64 (tensors, and lists of them)."""
+    if isinstance(v, torch.Tensor):
+        return v.double()
+    if isinstance(v, list):
+        return [x.double() for x in v]
+    return v
+
+
+def _stencil_f64(x, w, bias, scale, mean, mode):
+    """stencil's function computed in float64 from the same arguments
+    (stencil_plain computes in float32)."""
+    x, w, bias = x.double(), w.double(), bias.double()
+    if scale is not None:
+        x = (x - mean.double()[:, :, None, None]) * scale.double()[
+            :, :, None, None]
+    stride = (1, 2) if mode in ("down", "up") else (1, 1)
+    conv = (torch.nn.functional.conv_transpose2d if mode in ("up", "final")
+            else torch.nn.functional.conv2d)
+    y = conv(x, w, bias, stride=stride, padding=(1, 0))
+    if mode not in ("down", "up"):
+        return y, None, None
+    y = torch.nn.functional.elu(y)
+    return y, y.sum(dim=(2, 3)), (y * y).sum(dim=(2, 3))
+
+
+def _stencil_args(rng, mode, c, n, f_in, t, b=2):
+    wshape = (c, n, 3, 3) if mode in ("up", "final") else (n, c, 3, 3)
+    args = [_t(rng, (b, c, t, f_in)), _t(rng, wshape, scale=0.2),
+            _t(rng, (n,), scale=0.2)]
+    if mode == "enc0":
+        return args + [None, None]
+    return args + [_t(rng, (b, c), 0.5, 1.5), _t(rng, (b, c), -0.5, 0.5)]
+
+
+def _bwd_args(rng, mode, widths, n, f_in, t, b=2):
+    c = sum(widths)
+    f_out = f_in if mode == "dense" else out_bins(mode, f_in)
+    wshape = (c, n, 3, 3) if mode in ("up", "final") else (n, c, 3, 3)
+    xs = [_t(rng, (b, w, t, f_in)) for w in widths]
+    stats = ([None, None] if mode == "enc0" else
+             [_t(rng, (b, c), 0.5, 1.5), _t(rng, (b, c), -0.5, 0.5)])
+    return (_t(rng, (b, n, t, f_out)), xs, _t(rng, wshape, scale=0.2),
+            *stats, mode)
+
+
+def _outputs(out):
+    flat = []
+    for v in out:
+        flat.extend(v if isinstance(v, tuple) else [v])
+    return flat
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,c,n,f_in,t", [
+    ("enc0", 12, 24, 129, 37), ("down", 24, 32, 127, 37),
+    ("up", 64, 24, 63, 37), ("final", 48, 4, 127, 37),
+    ("up", 5, 33, 1, 3), ("down", 3, 40, 5, 2),
+    ("enc0", 16, 24, 257, 9), ("final", 48, 2, 127, 37),
+    ("up", 8, 8, 8, 50), ("down", 40, 24, 31, 9),
+])
+def test_stencil_f32_matches_float64(cuda, mode, c, n, f_in, t):
+    """The float32 mode runs three TF32 passes over split operands, so it
+    stays in float32's class: within F64_ATOL of max-abs of the plain
+    version run in float64, where one TF32 pass (about 1e-3) would not."""
+    args = _stencil_args(np.random.default_rng(21), mode, c, n, f_in, t)
+    got = stencil(*args, mode)
+    want = _stencil_f64(*args, mode)
+    torch.cuda.synchronize()
+    for g, r in zip(got, want):
+        if r is None:
+            assert g is None
+        else:
+            assert g.dtype == torch.float32
+            _close(g.double(), r, F64_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,widths,n,f_in,t", [
+    ("dense", (24,), 120, 63, 37), ("dense", (24, 24), 144, 63, 37),
+    ("dense", (16,), 40, 255, 9), ("dense", (8, 5), 24, 2, 3),
+    ("dense", (64, 64), 192, 7, 37),      # dec2 call 0: the longest dgrad
+    ("enc0", (12,), 24, 129, 37), ("down", (24,), 32, 127, 37),
+    ("down", (3,), 40, 5, 2), ("up", (64,), 24, 63, 37),
+    ("up", (5,), 33, 1, 3), ("final", (48,), 4, 127, 37),
+    ("final", (48,), 2, 127, 37), ("enc0", (20,), 24, 129, 9),
+])
+def test_stencil_bwd_f32_matches_float64(cuda, mode, widths, n, f_in, t):
+    """As test_stencil_f32_matches_float64 for the backward: dx, dW
+    (long wgrad reductions in the mma's float32 accumulators), dbias,
+    dscale and dmean within F64_ATOL of the float64 run."""
+    args = _bwd_args(np.random.default_rng(22), mode, widths, n, f_in, t)
+    got = stencil_bwd(*args)
+    want = stencil_bwd_plain(*[_f64(v) for v in args])
+    torch.cuda.synchronize()
+    for g, r in zip(_outputs(got), _outputs(want)):
+        if r is None:
+            assert g is None
+        else:
+            assert g.dtype == torch.float32
+            _close(g.double(), r, F64_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["enc0", "down", "up", "final"])
+def test_stencil_f32_repeats_bit_for_bit(cuda, mode):
+    """Two float32 calls on the same inputs give the same bits (fixed-order
+    sums and statistics)."""
+    c, n = (12, 24) if mode == "enc0" else (32, 24) if mode != "final" \
+        else (48, 4)
+    args = _stencil_args(np.random.default_rng(23), mode, c, n, 63, 37)
+    first = stencil(*args, mode)
+    again = stencil(*args, mode)
+    for a, b_ in zip(first, again):
+        assert (a is None and b_ is None) or torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,widths,n,f_in", [
+    ("dense", (24, 24), 144, 63), ("enc0", (12,), 24, 129),
+    ("down", (24,), 32, 127), ("up", (64,), 24, 63), ("final", (48,), 4, 127),
+])
+def test_stencil_bwd_f32_repeats_bit_for_bit(cuda, mode, widths, n, f_in):
+    """Two float32 backward calls on the same inputs give the same bits:
+    the wgrad's fixed splits added in split order, the dgrad's statistics
+    in a fixed order, no atomics."""
+    args = _bwd_args(np.random.default_rng(24), mode, widths, n, f_in, 37)
+    first = stencil_bwd(*args)
+    again = stencil_bwd(*args)
+    for a, r in zip(_outputs(first), _outputs(again)):
+        assert (a is None and r is None) or torch.equal(a, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("o,widths", [
+    (24, (12,)), (5, (3,)), (33, (5,)), (7, (8, 5)), (64, (192,)),
+])
+def test_pack_tf32_kernel_equals_plain(cuda, o, widths, transpose):
+    """The float32 weight planes built on the card (one launch of
+    pack_tf32_kernel) are pack_tf32_plain's bit for bit: the same
+    placement, the same cvt.rna split."""
+    from misonet_tpu_torch.ops.kernels.tc_pack import (
+        pack_tf32, pack_tf32_plain)
+
+    r = sum(widths)
+    shape = (r, o, 3, 3) if transpose else (o, r, 3, 3)
+    w = _t(np.random.default_rng(o + r), shape)
+    before = pack_tf32.launches
+    got = pack_tf32(w, widths, transpose)
+    assert pack_tf32.launches == before + 1
+    assert torch.equal(got, pack_tf32_plain(w, widths, transpose))
+
+
+@pytest.mark.cuda
+def test_pack_tf32_refuses_what_it_does_not_take(cuda):
+    from misonet_tpu_torch.ops.kernels.tc_pack import pack_tf32
+
+    w = torch.zeros((4, 10, 3, 3), device=cuda)
+    with pytest.raises(ValueError, match="do not sum"):
+        pack_tf32(w, (4, 5))
+    with pytest.raises(ValueError, match="float32"):
+        pack_tf32(w.to(BF16), (10,))
+    with pytest.raises(ValueError, match="source"):
+        pack_tf32(torch.zeros((4, 9, 3, 3), device=cuda), (1,) * 9)
+
+
+@pytest.mark.cuda
+def test_f32_weights_are_packed_once_per_version(cuda):
+    """A float32 stencil packs its weight on the card once per weight
+    version (one pack_tf32_kernel launch), and stencil_bwd's dgrad packs
+    its transposed role once more."""
+    from misonet_tpu_torch.ops.kernels.tc_pack import pack_tf32
+
+    args = _stencil_args(np.random.default_rng(25), "down", 24, 32, 63, 9)
+    w = args[1]
+    before = pack_tf32.launches
+    stencil(*args, "down")
+    stencil(*args, "down")
+    assert pack_tf32.launches == before + 1
+    g = _t(np.random.default_rng(26), (2, 32, 9, out_bins("down", 63)))
+    for _ in range(2):
+        stencil_bwd(g, [args[0]], w, args[3], args[4], "down")
+    assert pack_tf32.launches == before + 2
+    with torch.no_grad():
+        w.mul_(0.5)                     # a new version
+    stencil(*args, "down")
+    assert pack_tf32.launches == before + 3
 
 
 @pytest.mark.cuda

@@ -31,15 +31,15 @@ def _w(rng, shape, dtype=torch.bfloat16):
         dtype)
 
 
-def _reduced_channel(widths):
+def _reduced_channel(widths, group=8):
     """For each padded group slot (g, e): the reduced channel it holds, or
     -1 for a pad slot."""
     slots, off = [], 0
     for c in widths:
-        for k in range(-(-c // 8) * 8):
+        for k in range(-(-c // group) * group):
             slots.append(off + k if k < c else -1)
         off += c
-    return np.array(slots).reshape(-1, 8)
+    return np.array(slots).reshape(-1, group)
 
 
 @pytest.mark.parametrize("o,widths", [
@@ -62,6 +62,61 @@ def test_pack_places_every_weight(o, widths):
                 want = (w[:, r, tap // 3, tap % 3] if r >= 0
                         else torch.zeros(o, dtype=w.dtype))
                 assert torch.equal(p[g, tap, :, e], want), (g, e, tap)
+
+
+@pytest.mark.parametrize("o,widths", [
+    (24, (12,)),          # MISO1's enc0 input: 3 whole groups of 4
+    (5, (3,)),            # one source padded 3 -> 4
+    (33, (5,)),           # padded 5 -> 8
+    (7, (8, 5)),          # two sources, the second padded
+])
+def test_pack_f32_places_every_weight(o, widths):
+    """group=4, the float32 kernels' layout: [G4, 9, O, 4], each source
+    padded to a multiple of 4 channels, every weight at its slot."""
+    w = _w(np.random.default_rng(o + 50), (o, sum(widths), 3, 3),
+           torch.float32)
+    p = pack_tc_weights(w, widths, group=4)
+    chan = _reduced_channel(widths, 4)
+    assert p.shape == (chan.shape[0], 9, o, 4) and p.dtype == torch.float32
+    assert p.is_contiguous()
+    for g in range(chan.shape[0]):
+        for e in range(4):
+            r = chan[g, e]
+            for tap in range(9):
+                want = (w[:, r, tap // 3, tap % 3] if r >= 0
+                        else torch.zeros(o))
+                assert torch.equal(p[g, tap, :, e], want), (g, e, tap)
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("o,widths", [
+    (24, (12,)), (5, (3,)), (33, (5,)), (7, (8, 5)),
+])
+def test_pack_tf32_places_both_planes(o, widths, transpose):
+    """pack_tf32 (on the CPU its plain twin, pack_tf32_plain): [2, G4, 9,
+    O, 4], element [p, g, tap, o, e] the big (p = 0) or small (p = 1)
+    TF32 part of the weight of output o and reduced channel slot (g, e),
+    zero in a pad slot, from the weight as it is or transposed."""
+    from misonet_tpu_torch.ops.kernels.tc_pack import (
+        pack_tf32, pack_tf32_plain, tf32_split)
+
+    w_or = _w(np.random.default_rng(o + 60), (o, sum(widths), 3, 3),
+              torch.float32)
+    w = w_or.transpose(0, 1).contiguous() if transpose else w_or
+    p = pack_tf32(w, widths, transpose)
+    assert torch.equal(p, pack_tf32_plain(w, widths, transpose))
+    chan = _reduced_channel(widths, 4)
+    assert p.shape == (2, chan.shape[0], 9, o, 4) and p.is_contiguous()
+    big, small = tf32_split(w_or)
+    for g in range(chan.shape[0]):
+        for e in range(4):
+            r = chan[g, e]
+            for tap in range(9):
+                kt, kf = divmod(tap, 3)
+                for plane, part in enumerate((big, small)):
+                    want = (part[:, r, kt, kf] if r >= 0
+                            else torch.zeros(o))
+                    assert torch.equal(p[plane, g, tap, :, e], want)
 
 
 @pytest.mark.parametrize("mode_transposed", [False, True])
@@ -104,10 +159,11 @@ def test_packed_layout_computes_the_conv():
     torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
 
 
-def test_pack_refuses_widths_that_do_not_sum():
+@pytest.mark.parametrize("group", [8, 4])
+def test_pack_refuses_widths_that_do_not_sum(group):
     w = torch.zeros(4, 10, 3, 3)
     with pytest.raises(ValueError, match="do not sum"):
-        pack_tc_weights(w, (4, 5))
+        pack_tc_weights(w, (4, 5), group=group)
 
 
 def test_packed_is_cached_per_tensor_and_version():
@@ -128,6 +184,23 @@ def test_packed_is_cached_per_tensor_and_version():
     del w
     gc.collect()
     assert len(tc_pack._CACHE) < n_before             # its entries went too
+
+
+def test_packed_is_cached_per_layout():
+    """A float32 weight packs in the float32 kernels' layout (two TF32
+    planes of groups of 4: the split of pack_tc_weights(..., group=4)),
+    its bf16 cast in the bf16 kernels' (groups of 8); the two are cached
+    apart."""
+    from misonet_tpu_torch.ops.kernels.tc_pack import tf32_split
+
+    w = _w(np.random.default_rng(10), (6, 12, 3, 3), torch.float32)
+    planes, eight = packed(w, (12,)), packed(w, (12,), dtype=torch.bfloat16)
+    assert planes.shape == (2, 3, 9, 6, 4) and eight.shape == (2, 9, 6, 8)
+    assert eight.dtype == torch.bfloat16
+    big, small = tf32_split(pack_tc_weights(w, (12,), group=4))
+    assert torch.equal(planes[0], big) and torch.equal(planes[1], small)
+    assert packed(w, (12,)) is planes
+    assert packed(w, (12,), dtype=torch.bfloat16) is eight
 
 
 def test_inference_tensors_are_packed_every_call():
@@ -264,11 +337,12 @@ def _stencil_from_packed(xn, wp, mode, f_out):
     """The stencil's conv as stencil_tc_kernel gathers it: per plane and
     column tile (tile_w's widths), each (group, tap) unit's window column
     through the geometry (held inside the window), the source row t + TS
-    (kt - 1), zero outside the plane, times the packed [G, 9, N, 8]
+    (kt - 1), zero outside the plane, times the packed [G, 9, N, group]
     weights."""
     b, c, t, f_in = xn.shape
-    g = wp.shape[0]
-    x = F.pad(xn, (0, 0, 0, 0, 0, 8 * g - c)).reshape(b, g, 8, t, f_in)
+    g, group = wp.shape[0], wp.shape[-1]
+    x = F.pad(xn, (0, 0, 0, 0, 0, group * g - c)).reshape(b, g, group, t,
+                                                          f_in)
     out = torch.zeros(b, wp.shape[2], t, f_out, dtype=xn.dtype)
     rows = torch.arange(t)
     for geo, f_pl, out_col in _planes(mode, f_in, f_out):
@@ -292,11 +366,14 @@ def _stencil_from_packed(xn, wp, mode, f_out):
     return out
 
 
-@pytest.mark.parametrize("mode,c,n,f_in", [
+STENCIL_GEOMETRIES = [
     ("enc0", 12, 24, 19), ("enc0", 5, 2, 9), ("down", 12, 33, 37),
     ("down", 5, 2, 7), ("up", 12, 2, 9), ("up", 5, 33, 4),
     ("up", 12, 24, 1), ("final", 12, 2, 19), ("final", 5, 33, 6),
-])
+]
+
+
+@pytest.mark.parametrize("mode,c,n,f_in", STENCIL_GEOMETRIES)
 def test_stencil_packing_and_maps_compute_the_stencil(mode, c, n, f_in):
     """For each stencil mode, ``packed(w, (C,), transpose=...)`` gathered
     through that mode's maps (Python transcriptions of tc::Geo::col and
@@ -331,3 +408,38 @@ def test_stencil_packing_and_maps_compute_the_stencil(mode, c, n, f_in):
         sums = y.sum(dim=(2, 3))
         torch.testing.assert_close(got[1].double(), sums, rtol=0,
                                    atol=1e-6 * sums.abs().max().item())
+
+
+@pytest.mark.parametrize("mode,c,n,f_in", STENCIL_GEOMETRIES)
+def test_stencil_tf32_passes_compute_the_float32_stencil(mode, c, n, f_in):
+    """The float32 mode's arithmetic, emulated in float64: the input
+    split by ``tf32_split`` (the kernels' ``tc::split_tf32``), the weights
+    packed as the kernel reads them (``packed`` of a float32 weight:
+    groups of 4, big and small planes), and the three products big big + big small
+    + small big gathered through each mode's maps equal the
+    float64 conv of the float32 operands within 1e-5 of max-abs; one TF32
+    pass (big big alone) misses it by more than ten times that."""
+    from misonet_tpu_torch.ops.kernels.stencil import out_bins
+    from misonet_tpu_torch.ops.kernels.tc_pack import tf32_split
+
+    rng = np.random.default_rng(c * 100 + n + 1)
+    b, t = 2, 11
+    f_out = out_bins(mode, f_in)
+    transpose = mode in ("up", "final")
+    x = _w(rng, (b, c, t, f_in), torch.float32)
+    w = _w(rng, (c, n, 3, 3) if transpose else (n, c, 3, 3), torch.float32)
+    xb, xs = tf32_split(x)
+    wb, ws = packed(w, (c,), transpose=transpose).double()
+    assert wb.shape == (-(-c // 4), 9, n, 4)
+
+    def gather(xv, wp):
+        return _stencil_from_packed(xv.double(), wp, mode, f_out)
+
+    three = gather(xs, wb) + gather(xb, ws) + gather(xb, wb)
+    one = gather(xb, wb)
+    stride = (1, 2) if mode in ("down", "up") else (1, 1)
+    conv = F.conv_transpose2d if transpose else F.conv2d
+    want = conv(x.double(), w.double(), None, stride=stride, padding=(1, 0))
+    top = want.abs().max().item()
+    assert (three - want).abs().max().item() <= 1e-5 * top
+    assert (one - want).abs().max().item() > 1e-4 * top

@@ -17,11 +17,13 @@ Phases (one or more JSON lines each; any failure exits non-zero):
               and the enhancement nets' own stencil shapes (MISO3 / MISO2
               enc0 at C = 16 / 20, MISO3 final at N = 2), error bound 1e-4
               normalized by max-abs, CUDA-event times of both and of the
-              cuDNN conv (library_ms), and the bound; the float32 stencil
-              (three TF32 passes on the tensor cores; fails without HMMA)
-              also within 1e-5 of its float64 run; each float32 stencil's
-              weight packed and split on the card (pack_tf32, the float32
-              kernels' weight planes) against its plain twin, bit for bit
+              cuDNN conv (library_ms), and the bound; the float32
+              dense_stack and stencil (three TF32 passes on the tensor
+              cores; each fails without HMMA) also within 1e-5 of their
+              float64 runs (dense_stack_f64, stencil_f64); each float32
+              dense and stencil weight packed and split on the card
+              (pack_tf32, the float32 kernels' weight planes) against its
+              plain twin, bit for bit
   4. forward  full default-width MISO1 forward [6, 6, 501, 129] (seeded
               weights, non-zero biases): fused kernel path against the
               plain path, exactly 50 dense_stack and 10 stencil launches
@@ -45,7 +47,9 @@ Phases (one or more JSON lines each; any failure exits non-zero):
               repeat gradients, 5 fused steps on the repeated batch with
               exactly 50 dense_stack, 10 stencil and 60 stencil_bwd
               launches per step (and pack_tf32's launches, one per new
-              weight version and role) and a falling loss, step times and
+              weight version and role: the 50 dense stacks rebuilt in the
+              graph every step, the stencils' and the dgrads' weights)
+              and a falling loss, step times and
               peak memory of both paths, and a torch.profiler breakdown of
               one fused step
   8. solve-kernel  hermitian_solve against hermitian_solve_plain run in
@@ -126,8 +130,11 @@ Phases (one or more JSON lines each; any failure exits non-zero):
               False), B = 6, T = 501: every case once with the counts reset
               (exact launches), then against dense_layer_plain (1e-4; bf16
               outputs 1e-2), times of kernel, plain version and cuDNN's
-              conv, and the bound; fails if the bf16 mode's kernel has no
-              tensor-core instructions
+              conv, and the bound; float32 (three TF32 passes) also
+              within 1e-5 of its float64 run (dense_layer_f64), each
+              float32 weight's planes bit for bit against pack_tf32_plain;
+              fails if either mode's kernel has no tensor-core
+              instructions
  21. reverb   the REVERB plan (configs/reverb_2mix.yml: 8 levels, F = 257,
               8 mics, 384-channel TCN, bf16) at full width: the forward of
               one 4 s chunk's 8 circular shifts, fused vs plain (phase 12's
@@ -282,13 +289,13 @@ def expect(mode="float32", dense=0, stencil=0, **other):
 
 
 # the kernel functions of each counted mode, as substrings of their SASS
-# names (the bf16 modes of dense_stack and dense_layer, both modes of
-# stencil and stencil_bwd and the int8 mode run the tensor-core kernels of
-# csrc/conv_mma.cuh; float32 stencil and stencil_bwd as TF32 passes)
+# names (every mode runs the tensor-core kernels of csrc/conv_mma.cuh,
+# float32 as TF32 passes; the float32 and bf16 modes of dense_stack and
+# dense_layer are instances of one kernel template)
 KERNEL_FUNCTIONS = {
-    "dense_stack": ("dense_stack_kernel",),
+    "dense_stack": ("dense_stack_tc_kernel",),
     "dense_stack_bf16": ("dense_stack_tc_kernel",),
-    "dense_layer": ("dense_stack_kernel",),
+    "dense_layer": ("dense_stack_tc_kernel",),
     "dense_layer_bf16": ("dense_stack_tc_kernel",),
     "stencil": ("stencil_tc_kernel",),
     "stencil_bf16": ("stencil_tc_kernel",),
@@ -496,10 +503,43 @@ def stencil_f64(x, w, bias, scale, mean, mode):
     return y, y.sum(dim=(2, 3)), (y * y).sum(dim=(2, 3))
 
 
+def dense_layer_f64(xs, w, bias, scale, mean, fuse_elu=True,
+                    want_stats=True):
+    """dense_layer's function in float64 from the same arguments (its plain
+    version computes in float32): (y, sums, sqs), the sums None without
+    ``want_stats``."""
+    import torch.nn.functional as F
+
+    f64 = torch.float64
+    xn = normalized([x.to(f64) for x in xs], scale.to(f64), mean.to(f64))
+    y = F.conv2d(xn, w.to(f64), bias.to(f64), padding=1)
+    if fuse_elu:
+        y = F.elu(y)
+    if not want_stats:
+        return y, None, None
+    return y, y.sum(dim=(2, 3)), (y * y).sum(dim=(2, 3))
+
+
+def dense_stack_f64(xs, acc_in, w_stack, bias, scale, mean, n_fin):
+    """dense_stack's function in float64 from the same arguments: (y, sums,
+    sqs, acc_out)."""
+    import torch.nn.functional as F
+
+    f64 = torch.float64
+    xn = normalized([x.to(f64) for x in xs], scale.to(f64), mean.to(f64))
+    z = F.conv2d(xn, w_stack.to(f64), padding=1)
+    if acc_in is not None:
+        z = z + acc_in.to(f64)
+    y = F.elu(z[:, :n_fin] + bias.to(f64)[None, :, None, None])
+    acc_out = z[:, n_fin:] if z.shape[1] > n_fin else None
+    return y, y.sum(dim=(2, 3)), (y * y).sum(dim=(2, 3)), acc_out
+
+
 def check_pack(name, w, widths, transpose, records):
     """pack_tf32 (the float32 weight planes, one launch) against its plain
-    twin on one weight of a float32 stencil or dgrad, bit for bit; its
-    bound is its bytes (no arithmetic but the split)."""
+    twin on one weight of a float32 dense_stack, dense_layer, stencil or
+    dgrad, bit for bit; its bound is its bytes (no arithmetic but the
+    split)."""
     from misonet_tpu_torch.ops.kernels.tc_pack import (
         pack_tf32, pack_tf32_plain)
 
@@ -578,6 +618,7 @@ def phase_kernels(records):
     from misonet_tpu_torch.ops.kernels.stencil import stencil, stencil_plain
     from misonet_tpu_torch.ops.kernels.stencil_bwd import geometry
 
+    check_tensor_cores(records["dense_stack"])
     check_tensor_cores(records["stencil"])
     rng = np.random.default_rng(SEED)
     for name, widths, n, n_fin, f, with_acc in DENSE_CASES:
@@ -596,7 +637,8 @@ def phase_kernels(records):
                      args, records["dense_stack"],
                      2 * conv_macs("dense", B, c, n, T, f),
                      lambda: F.conv2d(xn, args[2], padding=1),
-                     peak=PEAK_TF32X3)
+                     peak=PEAK_TF32X3, f64=dense_stack_f64)
+        check_pack(f"dense_stack {name}", args[2], widths, False, records)
 
     for name, mode, c, n, f_in, b in [*(case + (B,) for case in STENCIL_CASES),
                                       *ENHANCE_STENCIL_CASES]:
@@ -1284,7 +1326,7 @@ def profile_window(fn):
             group = "dense_stack_int8"
         elif "quantize_rows_kernel" in name:
             group = "int8_rows"
-        elif "dense_stack_kernel" in name or "dense_stack_tc_kernel" in name:
+        elif "dense_stack_tc_kernel" in name:
             group = "dense_stack"
         elif "stencil_tc_kernel" in name:
             group = "stencil"
@@ -1477,7 +1519,15 @@ def phase_train(cfg, device, records, mode="float32"):
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     pack_tf32.launches = 0
-    times, metrics = step_ms(step, state, batch, TRAIN_STEPS)
+    step_packs = []  # pack_tf32 launches of each step
+
+    def counted_step(state, *batch):
+        before = pack_tf32.launches
+        out = step(state, *batch)
+        step_packs.append(pack_tf32.launches - before)
+        return out
+
+    times, metrics = step_ms(counted_step, state, batch, TRAIN_STEPS)
     counts = launch_counts()
     packs = pack_tf32.launches
     peak_fused = torch.cuda.max_memory_allocated() / 2**30
@@ -1486,6 +1536,7 @@ def phase_train(cfg, device, records, mode="float32"):
     losses = [m["loss"] for m in metrics]
     print(json.dumps({"phase": phase, "path": "fused", "steps": TRAIN_STEPS,
                       "launches": counts, "pack_tf32_launches": packs,
+                      "pack_tf32_launches_by_step": step_packs,
                       "losses": losses,
                       "grad_norms": [m["grad_norm"] for m in metrics],
                       "step_ms": times, "peak_gib": peak_fused}), flush=True)
@@ -1915,6 +1966,7 @@ def phase_dense_layer(records):
     from misonet_tpu_torch.ops.kernels.dense_layer import (
         dense_layer, dense_layer_plain)
 
+    check_tensor_cores(records["dense_layer"])
     check_tensor_cores(records["dense_layer_bf16"])
     rng = np.random.default_rng(SEED + 20)
     f = DENSE_LAYER_F
@@ -1958,8 +2010,13 @@ def phase_dense_layer(records):
             args, records["dense_layer_bf16" if bf16 else "dense_layer"],
             2 * B * T * f * n * 9 * c,
             lambda: F.conv2d(xn, args[1], args[2].to(dtype), padding=1),
-            phase="dense-layer", peak=peak)
+            phase="dense-layer", peak=peak,
+            f64=None if bf16 else (lambda *a: dense_layer_f64(
+                *a, fuse_elu=elu, want_stats=stats)))
         del xn
+        if not bf16:
+            check_pack(f"dense_layer {name}", args[1],
+                       [int(x.shape[1]) for x in args[0]], False, records)
 
 
 REVERB_CONFIG = "configs/reverb_2mix.yml"

@@ -1,7 +1,7 @@
 // Tensor-core pieces of the gather convs: the float32 and bf16 modes of
-// stencil.cu and stencil_bwd.cu (dgrad and wgrad), the bf16 mode of
-// dense_stack.cu (the forward, and through it dense_layer), and the int8
-// kernel dense_stack_int8.cu.  bf16 products are
+// dense_stack.cu (the forward, and through it dense_layer), stencil.cu and
+// stencil_bwd.cu (dgrad and wgrad), and the int8 kernel
+// dense_stack_int8.cu.  bf16 products are
 // `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32` (bf16 x bf16
 // products, float32 sums), int8 products
 // `mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32` (exact int32 sums),
@@ -239,12 +239,16 @@ __device__ __forceinline__ float bf16_at(const __nv_bfloat16* p) {
 
 // ---- the gather conv's main loop --------------------------------------------
 //
-// A block computes M = 128 positions (8 warps x 16) by BN = 8 * NT8 output
-// channels; each warp holds its 16 positions x all BN channels (NT8 * 4
-// sums a thread).  Per staged chunk of up to GMAX groups the reduction
-// runs over n_units = NTAP * groups units, two per k-step.  The weights of
-// a chunk sit in shared memory as [unit][BN][16 bytes] (copied by cp.async
-// from the packed weights), units unit_bytes(BN) apart (the 8 rows one
+// A block computes M = MT * 128 positions (8 warps x MT m16 fragments) by
+// BN = 8 * NT8 output channels; each warp holds its MT x 16 positions x
+// all BN channels (MT * NT8 * 4 sums a thread), fragment i of warp w the
+// tile positions i * 128 + 16 w .. + 15.  MT = 2 reads each B fragment
+// once for two A fragments, which halves the shared-memory reads of B per
+// mma (the float32 dense_stack and dense_layer; every other kernel runs
+// MT = 1).  Per staged chunk of up to GMAX groups the reduction runs over
+// n_units = NTAP * groups units, two per k-step.  The weights of a chunk
+// sit in shared memory as [unit][BN][16 bytes] (copied by cp.async from
+// the packed weights), units unit_bytes(BN) apart (the 8 rows one
 // ldmatrix reads are 128 contiguous bytes); a unit past n_units is zero.
 
 constexpr int GM_WARPS = 8;
@@ -260,26 +264,37 @@ __host__ __device__ constexpr int unit_bytes(int bn) { return bn * 16 + 16; }
 // up to 32 accumulators, 128 for the widest tile; float32, which keeps a
 // chunk's sums apart and splits its operands, 128 past 8 accumulators).
 template <typename E = void>
-__host__ __device__ constexpr int gm_min_blocks(int nt8) {
-  return nt8 > (kTf32<E> ? 2 : 8) ? 2 : 3;
+__host__ __device__ constexpr int gm_min_blocks(int nt8, int mt = 1) {
+  return mt * nt8 > (kTf32<E> ? 2 : 8) ? 2 : 3;
 }
 
 // A gather tile is tile_h x tile_w positions of the output plane (8 x 16,
-// or 16 x 8 for planes of 8 bins or fewer); its window (tile_h + 2) rows
-// x G::width(tile_w) columns, + the zero row.
+// or 16 x 8 for planes of 8 bins or fewer, MT times the rows at MT
+// fragments a warp); its window (tile_h + 2) rows x G::width(tile_w)
+// columns, + the zero row.
 __host__ __device__ inline int tile_w(int F) { return F > 8 ? 16 : 8; }
-__host__ __device__ inline int tile_h(int F) { return GM_POS / tile_w(F); }
-__host__ __device__ inline int pos_tiles(int T, int F) {
-  return ((T + tile_h(F) - 1) / tile_h(F)) * ((F + tile_w(F) - 1) / tile_w(F));
+__host__ __device__ inline int tile_h(int F, int mt = 1) {
+  return mt * GM_POS / tile_w(F);
+}
+__host__ __device__ inline int pos_tiles(int T, int F, int mt = 1) {
+  return ((T + tile_h(F, mt) - 1) / tile_h(F, mt)) *
+         ((F + tile_w(F) - 1) / tile_w(F));
 }
 
+// The epilogue's rows of sums in shared memory (stage_acc): one per
+// output channel, the tile's positions + 4 floats apart.
+__host__ __device__ constexpr int z_row(int mt) { return mt * GM_POS + 4; }
+
 // Dynamic shared memory of a gather kernel: the weights of a chunk (one
-// plane, or float32's two), then the window and its zero row (the
-// epilogue reuses the weights' bytes).
-template <class G, typename E = void>
+// plane, or float32's two), then the window and its zero row; the
+// epilogue's sums (z_row) reuse these bytes from the start.
+template <class G, typename E = void, int MT = 1>
 __host__ __device__ constexpr size_t gather_smem(int bn, int tw) {
-  return (size_t)kPlanes<E> * GM_UNITS * unit_bytes(bn) +
-         (size_t)((GM_POS / tw + 2) * G::width(tw) + 1) * WIN_ROW;
+  const size_t main = (size_t)kPlanes<E> * GM_UNITS * unit_bytes(bn) +
+                      (size_t)((MT * GM_POS / tw + 2) * G::width(tw) + 1) *
+                          WIN_ROW;
+  const size_t sums = (size_t)bn * z_row(MT) * sizeof(float);
+  return main > sums ? main : sums;
 }
 
 // d += a b for a k-step: one mma of bf16 or int8 operands, or float32's
@@ -295,16 +310,18 @@ __device__ __forceinline__ void mma_step(Acc (&d)[4], const uint32_t (&a)[4],
     mma(d, a, b0, b1);
 }
 
-// d[j] += A (this warp's 16 positions x the chunk's units) * B (units x
-// the n8 tile j), A's row for unit u given by a_row(u) (a shared-memory
-// byte address of 16 bytes of one window row, or of the zero row), both of
-// element type E; float32: A split in registers, B's small plane GM_UNITS
-// units after its big one.  n8 tiles go in pairs (ldmatrix.x4 of B), an
-// odd last one alone (.x2), so a narrow output (N = 2, 4) takes one n8
-// tile.
-template <int NT8, typename E, typename Acc, class ARow>
-__device__ __forceinline__ void gather_steps(Acc (&d)[NT8][4], int n_units,
-                                             uint32_t ws, ARow a_row) {
+// d[i * NT8 + j] += A (fragment i: 16 of this warp's positions x the
+// chunk's units) * B (units x the n8 tile j), A's row for unit u given by
+// a_row(u, i) (a shared-memory byte address of 16 bytes of one window row,
+// or of the zero row), both of element type E; float32: A split in
+// registers, B's small plane GM_UNITS units after its big one.  n8 tiles
+// go in pairs (ldmatrix.x4 of B), an odd last one alone (.x2), so a
+// narrow output (N = 2, 4) takes one n8 tile; each B fragment serves the
+// MT fragments of A.
+template <int NT8, typename E, int MT, typename Acc, class ARow>
+__device__ __forceinline__ void gather_steps(Acc (&d)[MT * NT8][4],
+                                             int n_units, uint32_t ws,
+                                             ARow a_row) {
   constexpr int US = unit_bytes(8 * NT8);
   constexpr uint32_t SMALL = GM_UNITS * US;  // B's small plane (float32)
   const int lane = threadIdx.x & 31;
@@ -314,24 +331,34 @@ __device__ __forceinline__ void gather_steps(Acc (&d)[NT8][4], int n_units,
   const int steps = (n_units + 1) >> 1;
 #pragma unroll 2
   for (int s = 0; s < steps; ++s) {
-    uint32_t a[4], as[4];
-    ldsm_x4(a_row(2 * s + (lane >> 4)), a);
-    if constexpr (kTf32<E>) split_tf32(a, a, as);
+    uint32_t a[MT][4], as[MT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      ldsm_x4(a_row(2 * s + (lane >> 4), i), a[i]);
+      if constexpr (kTf32<E>) split_tf32(a[i], a[i], as[i]);
+    }
 #pragma unroll
     for (int jp = 0; jp < NT8 / 2; ++jp) {
       const uint32_t ba = b_lane + 2 * s * US + jp * 16 * 16;
       uint32_t b[4], bs[4] = {};
       ldsm_x4(ba, b);
       if constexpr (kTf32<E>) ldsm_x4(ba + SMALL, bs);
-      mma_step<E>(d[2 * jp], a, as, b[0], b[1], bs[0], bs[1]);
-      mma_step<E>(d[2 * jp + 1], a, as, b[2], b[3], bs[2], bs[3]);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        mma_step<E>(d[i * NT8 + 2 * jp], a[i], as[i], b[0], b[1], bs[0],
+                    bs[1]);
+        mma_step<E>(d[i * NT8 + 2 * jp + 1], a[i], as[i], b[2], b[3], bs[2],
+                    bs[3]);
+      }
     }
     if constexpr ((NT8 & 1) != 0) {
       const uint32_t ba = b_lane + 2 * s * US + (NT8 - 1) * 8 * 16;
       uint32_t b0, b1, bs0 = 0, bs1 = 0;
       ldsm_x2(ba, b0, b1);
       if constexpr (kTf32<E>) ldsm_x2(ba + SMALL, bs0, bs1);
-      mma_step<E>(d[NT8 - 1], a, as, b0, b1, bs0, bs1);
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+        mma_step<E>(d[i * NT8 + NT8 - 1], a[i], as[i], b0, b1, bs0, bs1);
     }
   }
 }
@@ -342,18 +369,19 @@ __device__ __forceinline__ void gather_steps(Acc (&d)[NT8][4], int n_units,
 // accumulator over all chunks the dgrad missed the float64 run by 1.15e-5
 // of max-abs on the H100, PERF.md); no accumulator runs longer than one
 // chunk (at most 18 k-steps, 54 mmas) and the chunks add in float32.
-template <int NT8, typename E, typename Acc, class ARow>
-__device__ __forceinline__ void gather_mma(Acc (&acc)[NT8][4], int n_units,
-                                           uint32_t ws, ARow a_row) {
+template <int NT8, typename E, int MT, typename Acc, class ARow>
+__device__ __forceinline__ void gather_mma(Acc (&acc)[MT * NT8][4],
+                                           int n_units, uint32_t ws,
+                                           ARow a_row) {
   if constexpr (kTf32<E>) {
-    float part[NT8][4] = {};
-    gather_steps<NT8, E>(part, n_units, ws, a_row);
+    float part[MT * NT8][4] = {};
+    gather_steps<NT8, E, MT>(part, n_units, ws, a_row);
 #pragma unroll
-    for (int j = 0; j < NT8; ++j)
+    for (int j = 0; j < MT * NT8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
   } else {
-    gather_steps<NT8, E>(acc, n_units, ws, a_row);
+    gather_steps<NT8, E, MT>(acc, n_units, ws, a_row);
   }
 }
 
@@ -459,7 +487,8 @@ __device__ __forceinline__ void stage_window(unsigned char* win,
 }
 
 // One chunk of a gather conv over geometry G: the block's tile has tile_w
-// = tw columns from output column f0 and rows from t0 of its plane; the
+// = tw columns from output column f0 and tile_h(., MT) rows from t0 of its
+// plane (MT m16 fragments a warp, see gather_steps); the
 // chunk is `groups` groups of the packed weights wp from group gbase
 // (n_out output channels, the block's from o0; float32: the big plane,
 // the small one `plane` 16-byte units after it) and `rk` channels of the
@@ -467,15 +496,16 @@ __device__ __forceinline__ void stage_window(unsigned char* win,
 // stage_window).  Stages both (synchronising before, so the previous
 // chunk's or nothing's reads are done) and adds the chunk's products to
 // acc.
-template <class G, int NT8, typename E, typename Acc, class Load>
-__device__ __forceinline__ void gather_chunk(Acc (&acc)[NT8][4],
+template <class G, int NT8, typename E, int MT = 1, typename Acc,
+          class Load>
+__device__ __forceinline__ void gather_chunk(Acc (&acc)[MT * NT8][4],
                                              unsigned char* smem, int tw,
                                              int t0, int f0, const void* wp,
                                              size_t plane, int n_out, int o0,
                                              int gbase, int groups, int rk,
                                              int T, int F, Load load) {
   constexpr int BN = 8 * NT8;
-  const int th = GM_POS / tw;
+  const int th = MT * GM_POS / tw;
   const int sw = G::width(tw);
   const int n_win = (th + 2) * sw;
   const int lo = G::lo(f0);
@@ -494,48 +524,63 @@ __device__ __forceinline__ void gather_chunk(Acc (&acc)[NT8][4],
   const uint32_t win_s = smem_addr(win);
   const uint32_t zero_s = win_s + n_win * WIN_ROW;
   const int lane = threadIdx.x & 31;
-  // this lane's A row: position m of the tile
+  // this lane's A row of fragment 0: position m of the tile; fragment i
+  // is GM_POS positions (GM_POS / tw tile rows) further on
   const int m = (threadIdx.x >> 5) * 16 + (lane & 15);
   const int mr = m / tw;
   const int mf = f0 + m - mr * tw;
   const int n_units = groups * G::NTAP;
-  gather_mma<NT8, E>(acc, n_units, smem_addr(ws), [&](int u) -> uint32_t {
-    if (u >= n_units) return zero_s;
-    const int g = u / G::NTAP;
-    const int tap = G::tap(u - G::NTAP * g);
-    const int kt = tap / 3;
-    const int col = G::col(mf, tap - 3 * kt, lo);
-    if (G::SKIP && col < 0) return zero_s;  // a tap of the other parity
-    const int row = mr + 1 + G::TS * (kt - 1);
-    return win_s + (row * sw + col) * WIN_ROW + g * GROUP_BYTES;
-  });
+  gather_mma<NT8, E, MT>(
+      acc, n_units, smem_addr(ws), [&](int u, int i) -> uint32_t {
+        if (u >= n_units) return zero_s;
+        const int g = u / G::NTAP;
+        const int tap = G::tap(u - G::NTAP * g);
+        const int kt = tap / 3;
+        const int col = G::col(mf, tap - 3 * kt, lo);
+        if (G::SKIP && col < 0) return zero_s;  // a tap of the other parity
+        const int row = mr + i * (GM_POS / tw) + 1 + G::TS * (kt - 1);
+        return win_s + (row * sw + col) * WIN_ROW + g * GROUP_BYTES;
+      });
 }
 
 // The epilogue goes through shared memory: stage_acc writes the warps'
-// accumulators as zt[channel][position] (float, rows Z_ROW apart: the
+// accumulators as zt[channel][position] (float, rows z_row(MT) apart: the
 // fragment stores of a warp fall in distinct banks; an int32 sum as its
 // bits, which the int8 epilogue reads back with __float_as_int), and
 // finish_tile walks them with the tile's positions along the lanes, so the
 // loads and stores of the NCHW planes it does (through fn) are coalesced
 // (tw must be 8 or 16, tile_w's widths).
-constexpr int Z_ROW = GM_POS + 4;
 
 __device__ __forceinline__ float z_bits(float v) { return v; }
 __device__ __forceinline__ float z_bits(int v) { return __int_as_float(v); }
 
-template <int NT8, typename Acc>
-__device__ __forceinline__ void stage_acc(float* zt,
-                                          const Acc (&acc)[NT8][4]) {
+// fn(o, m, sum) for each sum of this thread's accumulators (the mma's
+// fragment layout): output channel o of the block's BN, tile position m
+// (0 .. MT * GM_POS - 1; fragment i holds i * GM_POS + 16 warp + 0 .. 15).
+template <int NT8, int MT, typename Acc, class Fn>
+__device__ __forceinline__ void for_each_acc(Acc (&acc)[MT * NT8][4],
+                                             Fn fn) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int j = 0; j < NT8; ++j)
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
+    for (int j = 0; j < NT8; ++j)
 #pragma unroll
-      for (int e = 0; e < 2; ++e)
-        zt[(8 * j + 2 * (lane & 3) + e) * Z_ROW + warp * 16 + (lane >> 2) +
-           8 * h] = z_bits(acc[j][2 * h + e]);
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          fn(8 * j + 2 * (lane & 3) + e,
+             i * GM_POS + warp * 16 + (lane >> 2) + 8 * h,
+             acc[i * NT8 + j][2 * h + e]);
+}
+
+template <int NT8, int MT, typename Acc>
+__device__ __forceinline__ void stage_acc(float* zt,
+                                          const Acc (&acc)[MT * NT8][4]) {
+  for_each_acc<NT8, MT>(acc, [&](int o, int m, Acc v) {
+    zt[o * z_row(MT) + m] = z_bits(v);
+  });
 }
 
 // fn(o, tile row, tile column, z) finishes output channel o0 + o at one
@@ -545,7 +590,7 @@ __device__ __forceinline__ void stage_acc(float* zt,
 // taken in a fixed order (each lane's 4 positions, then the warp's
 // butterfly) and written for o < n_stats as part[(row0 + o) * ntiles +
 // tile] and part[(rows + row0 + o) * ntiles + tile].
-template <int BN, class Fn>
+template <int BN, int MT, class Fn>
 __device__ __forceinline__ void finish_tile(const float* zt, int tw,
                                             bool stats, int n_stats,
                                             float* __restrict__ part,
@@ -556,9 +601,9 @@ __device__ __forceinline__ void finish_tile(const float* zt, int tw,
   for (int o = threadIdx.x >> 5; o < BN; o += GM_WARPS) {
     float s = 0.f, q = 0.f;
 #pragma unroll
-    for (int c = lane; c < GM_POS; c += 32) {
+    for (int c = lane; c < MT * GM_POS; c += 32) {
       const int pr = c >> shift;
-      const float2 t = fn(o, pr, c - (pr << shift), zt[o * Z_ROW + c]);
+      const float2 t = fn(o, pr, c - (pr << shift), zt[o * z_row(MT) + c]);
       s += t.x;
       q += t.y;
     }
@@ -577,19 +622,19 @@ __device__ __forceinline__ void finish_tile(const float* zt, int tw,
 
 // The epilogue of a gather kernel: its sums through shared memory (the
 // weights' bytes, once every warp is done with them) into finish_tile.
-template <int NT8, typename Acc, class Fn>
+template <int NT8, int MT = 1, typename Acc, class Fn>
 __device__ __forceinline__ void finish_gather(unsigned char* smem,
-                                              const Acc (&acc)[NT8][4],
+                                              const Acc (&acc)[MT * NT8][4],
                                               int tw, bool stats,
                                               int n_stats, float* part,
                                               size_t row0, size_t rows,
                                               int tile, int ntiles, Fn fn) {
   float* zt = reinterpret_cast<float*>(smem);
-  __syncthreads();  // every warp is done with the weights
-  stage_acc<NT8>(zt, acc);
+  __syncthreads();  // every warp is done with the weights and the window
+  stage_acc<NT8, MT>(zt, acc);
   __syncthreads();
-  finish_tile<8 * NT8>(zt, tw, stats, n_stats, part, row0, rows, tile,
-                       ntiles, fn);
+  finish_tile<8 * NT8, MT>(zt, tw, stats, n_stats, part, row0, rows, tile,
+                           ntiles, fn);
 }
 
 // The NT8 (n8 tiles a warp, up to max_nt8; odd counts only with odd) of a

@@ -1,7 +1,8 @@
 // tc_pack: the split weight planes of the float32 tensor-core kernels.
 //
-// The float32 modes of stencil.cu and stencil_bwd.cu (the dgrad) multiply
-// in three TF32 passes over split operands (conv_mma.cuh) and read their
+// The float32 modes of dense_stack.cu (dense_stack and dense_layer),
+// stencil.cu and stencil_bwd.cu (the dgrad) multiply in three TF32
+// passes over split operands (conv_mma.cuh) and read their
 // weights pre-split, as two packed planes [2, G, 9, O, 4]: element [p, g,
 // tap, o, e] is the big (p = 0) or small (p = 1) TF32 part of the weight
 // of output channel o and reduced channel 4 g + e of the padded reduction

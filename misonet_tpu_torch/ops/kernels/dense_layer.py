@@ -14,9 +14,10 @@ No path of either package calls it (the DenseBlocks run the stacked
 
 CUDA source: ``misonet_tpu_torch/csrc/dense_stack.cu`` (entry points
 ``misonet_dense_layer`` and ``misonet_dense_layer_bf16``): the
-``dense_stack`` kernels (CUDA-core FMAs in float32, tensor cores in bf16,
-the weight packed by ``tc_pack.packed``) with no partials in or out, every
-row finalized, up to ``MAX_SOURCES`` sources and the two switches.
+``dense_stack`` kernel on the tensor cores (three TF32 passes in float32,
+bf16 products in bf16, the weight packed by ``tc_pack.packed``) with no
+partials in or out, every row finalized, up to ``MAX_SOURCES`` sources and
+the two switches.
 
 The mode follows the sources' dtype, as in ``dense_stack``: float32
 throughout, or bfloat16 sources, weights and y with float32 bias, scale,
@@ -116,8 +117,8 @@ def dense_layer(xs, w, bias, scale, mean, *, fuse_elu: bool = True,
         part = torch.empty((2, b, n, ntiles), device=device)
         sums = torch.empty((b, n), device=device)
         sqs = torch.empty((b, n), device=device)
-    # the bf16 kernel reads its weights packed for its tensor cores
-    wk = tc_pack.packed(w, widths) if bf16 else w
+    # the kernel reads its weights packed for its tensor cores
+    wk = tc_pack.packed(w, widths)
     ptrs = (_P * len(xs))(*(x.data_ptr() for x in xs))
     cs = (_I * len(xs))(*widths)
 

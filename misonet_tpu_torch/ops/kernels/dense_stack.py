@@ -17,10 +17,11 @@ bfloat16: the sources, ``acc_in``, ``w_stack`` and the outputs ``y`` and
 float32.  The bfloat16 mode rounds where the TPU kernel does: the
 normalized input (its bf16 patch) and the weights are bfloat16, the
 products are summed in float32, ``acc_out`` and ``y`` are rounded for the
-store, and the statistics come from the float32 ``y``.  The float32 mode
-runs CUDA-core FMAs; the bfloat16 mode runs its products on the tensor
-cores and reads ``w_stack`` packed by ``tc_pack.packed`` (cached per weight
-tensor and version).
+store, and the statistics come from the float32 ``y``.  Both modes run
+their products on the tensor cores and read ``w_stack`` packed by
+``tc_pack.packed`` (cached per weight tensor and version): float32 as
+three TF32 passes over split operands (its weight as two TF32 planes, one
+``pack_tf32`` launch per weight version), bfloat16 as bf16 products.
 
 ``dense_stack`` launches the kernel for CUDA tensors (raising on anything
 it does not take) and runs ``dense_stack_plain`` for CPU tensors.  Each
@@ -131,8 +132,8 @@ def dense_stack(xs, acc_in, w_stack, bias, scale, mean, n_fin: int):
     part = torch.empty((2, b, n_fin, ntiles), device=device)
     sums = torch.empty((b, n_fin), device=device)
     sqs = torch.empty((b, n_fin), device=device)
-    # the bf16 kernel reads its weights packed for its tensor cores
-    wk = tc_pack.packed(w_stack, widths) if bf16 else w_stack
+    # the kernel reads its weights packed for its tensor cores
+    wk = tc_pack.packed(w_stack, widths)
     x1 = xs[1].data_ptr() if len(xs) == 2 else None
     with torch.cuda.device(device):
         err = entry(
@@ -160,12 +161,10 @@ dense_stack.launches_bf16 = 0
 
 
 def pos_tiles(lib, bf16: bool, t: int, f: int) -> int:
-    """Position tiles of a T x F plane, one statistics partial each per
-    (batch, channel): flat runs of ``misonet_pos_tile()`` positions in the
-    float32 kernels, the tensor-core kernels' 2-D tiles in bfloat16."""
-    if bf16:
-        return lib.misonet_tc_pos_tiles(t, f)
-    return -(-(t * f) // lib.misonet_pos_tile())
+    """Position tiles of the kernel's T x F output plane in the mode
+    (``misonet_dense_pos_tiles``), one statistics partial each per (batch,
+    channel)."""
+    return lib.misonet_dense_pos_tiles(t, f, int(bf16))
 
 
 def library() -> ctypes.CDLL:
@@ -176,8 +175,6 @@ def library() -> ctypes.CDLL:
             _I, _I, _I, _I, _I, _P,
         ]
         entry.restype = _I
-    lib.misonet_pos_tile.argtypes = []
-    lib.misonet_pos_tile.restype = _I
-    lib.misonet_tc_pos_tiles.argtypes = [_I, _I]
-    lib.misonet_tc_pos_tiles.restype = _I
+    lib.misonet_dense_pos_tiles.argtypes = [_I, _I, _I]
+    lib.misonet_dense_pos_tiles.restype = _I
     return lib

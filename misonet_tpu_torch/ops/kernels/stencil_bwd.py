@@ -222,4 +222,6 @@ def library() -> ctypes.CDLL:
                    lib.misonet_stencil_bwd_bf16_splits):
         splits.argtypes = [_I, _I, _I, _I, _I]
         splits.restype = _I
+    lib.misonet_tc_pos_tiles.argtypes = [_I, _I]
+    lib.misonet_tc_pos_tiles.restype = _I
     return lib

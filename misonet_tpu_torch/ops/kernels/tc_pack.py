@@ -159,9 +159,9 @@ def pack_tf32(w: torch.Tensor, widths, transpose: bool = False) -> torch.Tensor:
     return out
 
 
-# launches of the pack kernel (part of the float32 stencil and stencil_bwd
-# calls that pack a new weight version, so not one of launch_counts()'s
-# kernel modes)
+# launches of the pack kernel (part of the float32 dense_stack, dense_layer,
+# stencil and stencil_bwd calls that pack a new weight version, so not one
+# of launch_counts()'s kernel modes)
 pack_tf32.launches = 0
 
 

@@ -19,7 +19,8 @@ one bf16 ulp (the ELU's expm1 may differ in the last float32 bit).  The
 float32 stencil and stencil_bwd run three TF32 passes on the tensor
 cores: besides 1e-4 of their plain versions they are held to 1e-5 of
 max-abs of the float64 run (one TF32 pass would miss it at about 1e-3),
-and their outputs repeat bit for bit."""
+and their outputs repeat bit for bit; the float64 runs are chip_smoke.py's
+references."""
 
 import dataclasses
 
@@ -28,6 +29,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from chip_smoke import (  # noqa: E402
+    dense_layer_f64, dense_stack_f64, stencil_f64)
 from misonet_tpu_torch.beamforming.mvdr import mvdr_beamform  # noqa: E402
 from misonet_tpu_torch.config import ModelConfig  # noqa: E402
 from misonet_tpu_torch.losses import loss_enhance  # noqa: E402
@@ -314,23 +317,6 @@ def _f64(v):
     return v
 
 
-def _stencil_f64(x, w, bias, scale, mean, mode):
-    """stencil's function computed in float64 from the same arguments
-    (stencil_plain computes in float32)."""
-    x, w, bias = x.double(), w.double(), bias.double()
-    if scale is not None:
-        x = (x - mean.double()[:, :, None, None]) * scale.double()[
-            :, :, None, None]
-    stride = (1, 2) if mode in ("down", "up") else (1, 1)
-    conv = (torch.nn.functional.conv_transpose2d if mode in ("up", "final")
-            else torch.nn.functional.conv2d)
-    y = conv(x, w, bias, stride=stride, padding=(1, 0))
-    if mode not in ("down", "up"):
-        return y, None, None
-    y = torch.nn.functional.elu(y)
-    return y, y.sum(dim=(2, 3)), (y * y).sum(dim=(2, 3))
-
-
 def _stencil_args(rng, mode, c, n, f_in, t, b=2):
     wshape = (c, n, 3, 3) if mode in ("up", "final") else (n, c, 3, 3)
     args = [_t(rng, (b, c, t, f_in)), _t(rng, wshape, scale=0.2),
@@ -372,7 +358,7 @@ def test_stencil_f32_matches_float64(cuda, mode, c, n, f_in, t):
     version run in float64, where one TF32 pass (about 1e-3) would not."""
     args = _stencil_args(np.random.default_rng(21), mode, c, n, f_in, t)
     got = stencil(*args, mode)
-    want = _stencil_f64(*args, mode)
+    want = stencil_f64(*args, mode)
     torch.cuda.synchronize()
     for g, r in zip(got, want):
         if r is None:
@@ -436,6 +422,78 @@ def test_stencil_bwd_f32_repeats_bit_for_bit(cuda, mode, widths, n, f_in):
     again = stencil_bwd(*args)
     for a, r in zip(_outputs(first), _outputs(again)):
         assert (a is None and r is None) or torch.equal(a, r)
+
+
+# the float32 dense_stack's cases: test_dense_stack_kernel_matches_plain's,
+# and dec2's first call, the longest reduction (64 + 64 channels x 9 taps)
+# on a plane of 7 bins
+F32_DENSE_CASES = [
+    ((24,), 120, 24, False, 37, 63),
+    ((32,), 128, 32, True, 37, 63),
+    ((24, 24), 144, 24, False, 37, 63),
+    ((24,), 48, 48, True, 37, 63),
+    ((16,), 40, 8, True, 9, 255),      # REVERB width
+    ((8, 5), 24, 16, False, 3, 2),     # groups of 4: each source pads its own
+    ((64, 64), 192, 32, False, 37, 7),  # dec2 call 0
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths,n,n_fin,with_acc,t,f", F32_DENSE_CASES)
+def test_dense_stack_f32_matches_float64(cuda, widths, n, n_fin, with_acc,
+                                         t, f):
+    """The float32 mode runs three TF32 passes over split operands, each
+    16-channel chunk in fresh accumulators, so it stays in float32's class:
+    every output within F64_ATOL of max-abs of the float64 run."""
+    args = _dense_args(np.random.default_rng(27), widths, n, n_fin,
+                       with_acc, t, f, torch.float32, torch.float32)
+    got = dense_stack(*args, n_fin)
+    want = dense_stack_f64(*args, n_fin)
+    torch.cuda.synchronize()
+    for g, r in zip(got, want):
+        if r is None:
+            assert g is None
+        else:
+            assert g.dtype == torch.float32
+            _close(g.double(), r, F64_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths,n,fuse_elu,want_stats,t,f", [
+    ((8,) * 8, 16, True, True, 5, 33),             # MAX_SOURCES
+    ((24,) * 5, 24, True, True, 9, 127),           # an encoder's layer 5
+    ((5, 3) * 4, 24, True, True, 9, 31),           # 8 sources, odd widths
+    ((24, 24), 24, False, True, 37, 63),           # no ELU
+    ((24, 24), 48, True, False, 37, 63),           # no statistics
+])
+def test_dense_layer_f32_matches_float64(cuda, widths, n, fuse_elu,
+                                         want_stats, t, f):
+    """Kernel 2.6 in float32 (dense_stack's three TF32 passes over up to 8
+    sources, each padded to its own groups of 4) within F64_ATOL of
+    max-abs of its float64 run, with either switch off."""
+    args = _dense_args(np.random.default_rng(28), widths, n, n, False, t, f,
+                       torch.float32, torch.float32)
+    args = (args[0], args[2], args[3], args[4], args[5])
+    got = dense_layer(*args, fuse_elu=fuse_elu, want_stats=want_stats)
+    want = dense_layer_f64(*args, fuse_elu, want_stats)
+    torch.cuda.synchronize()
+    for g, r in zip(got, want):
+        if r is None:
+            assert g is None
+        else:
+            _close(g.double(), r, F64_ATOL)
+
+
+@pytest.mark.cuda
+def test_dense_stack_f32_repeats_bit_for_bit(cuda):
+    """Two float32 calls on the same inputs give the same bits (fixed-order
+    sums and statistics, no atomics)."""
+    args = _dense_args(np.random.default_rng(29), (24, 24), 144, 24, True,
+                       37, 63, torch.float32, torch.float32)
+    first = dense_stack(*args, 24)
+    again = dense_stack(*args, 24)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -3,8 +3,9 @@
 ``tc_pack.tf32_split``: the rounding to TF32 on hand-picked bit patterns,
 the split's reconstruction, and a float64 emulation of the three TF32
 products (big big + big small + small big) through the packed weights and
-each mode's dgrad and wgrad maps (Python transcriptions of tc::Geo),
-against the float64 backward of the float32 operands.  The three passes
+the dense_stack / dense_layer call's 16-channel chunks, and each mode's
+dgrad and wgrad maps (Python transcriptions of tc::Geo), against the
+float64 conv and backward of the float32 operands.  The three passes
 stay within 1e-5 of max-abs (float32's class, the card tests' bound);
 one pass misses by more than ten times that.  No JAX, no card."""
 
@@ -84,6 +85,74 @@ def test_tf32_split_rebuilds_x():
 def test_tf32_round_refuses_other_dtypes():
     with pytest.raises(ValueError, match="float32 only"):
         tf32_round(torch.zeros(3, dtype=torch.float64))
+
+
+# ---- the dense_stack / dense_layer call (csrc/dense_stack.cu) ----------------
+
+def _chunks(xn, wp, widths):
+    """The float32 call's reduction as the kernel runs it: per source
+    (padded to its own groups of 4) and chunk of 4 groups (16 channels),
+    the normalized window split (tf32_split) times the packed planes
+    ``wp`` [2, G, 9, N, 4], three passes summed in float64, then the
+    chunks summed; and the one-pass (big big) sum beside it."""
+    three = one = 0
+    goff = 0
+    for x in torch.split(xn, list(widths), dim=1):
+        c = x.shape[1]
+        groups = -(-c // 4)
+        xb, xs = (F.pad(v, (0, 0, 0, 0, 0, 4 * groups - c)).double()
+                  for v in tf32_split(x.contiguous()))
+        for g0 in range(0, groups, 4):
+            gs = slice(goff + g0, goff + min(g0 + 4, groups))
+            # [2, g, 9, N, 4] -> conv weights [N, 4 g, 3, 3]
+            wb, ws = (p.permute(2, 0, 3, 1).reshape(p.shape[2], -1, 3, 3)
+                      for p in wp[:, gs].double())
+            cs = slice(4 * g0, 4 * min(g0 + 4, groups))
+
+            def conv(xv, wv):
+                return F.conv2d(xv[:, cs], wv, padding=1)
+
+            big = conv(xb, wb)
+            three = three + (conv(xs, wb) + conv(xb, ws) + big)
+            one = one + big
+        goff += groups
+    return three, one
+
+
+@pytest.mark.parametrize("widths,n,with_acc", [
+    ((24,), 20, False),     # one source, a chunk of 16 and one of 8
+    ((8, 5), 24, False),    # two sources, each padded to its own groups
+    ((12,), 16, True),      # acc_in added to the chunks' sum
+    ((8, 6, 5), 24, False),  # a dense_layer call over three sources
+])
+def test_dense_stack_tf32_passes_compute_the_float32_call(widths, n,
+                                                          with_acc):
+    """The float32 dense_stack / dense_layer reduction: the weight packed
+    as the kernel reads it (``packed`` of a float32 weight: two TF32
+    planes, groups of 4 per source), the normalized window split, three
+    passes per 16-channel chunk; within F64_BOUND of the float64 conv of
+    the float32 operands (+ acc_in), one pass not."""
+    rng = np.random.default_rng(300 + sum(widths) + n)
+    b, t, f = 2, 7, 9
+    c = sum(widths)
+
+    def rand(shape, lo=None, hi=None):
+        v = (rng.uniform(lo, hi, shape) if lo is not None
+             else rng.standard_normal(shape))
+        return torch.from_numpy(v.astype(np.float32))
+
+    x, w = rand((b, c, t, f)), rand((n, c, 3, 3))
+    scale, mean = rand((b, c), 0.5, 1.5), rand((b, c), -0.5, 0.5)
+    acc = rand((b, n, t, f)) if with_acc else None
+    xn = (x - mean[:, :, None, None]) * scale[:, :, None, None]
+    wp = packed(w, widths)
+    assert wp.shape == (2, sum(-(-w_ // 4) for w_ in widths), 9, n, 4)
+    want = F.conv2d(xn.double(), w.double(), padding=1)
+    three, one = _chunks(xn, wp, widths)
+    if acc is not None:
+        want, three, one = (v + acc.double() for v in (want, three, one))
+    assert _within(three, want) <= F64_BOUND
+    assert _within(one, want) > 10 * F64_BOUND
 
 
 # ---- the dgrad and wgrad roles (csrc/stencil_bwd.cu) ------------------------

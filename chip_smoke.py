@@ -56,18 +56,32 @@ Phases (one or more JSON lines each; any failure exits non-zero):
               float64, M = 6, 258 / 1,032 / 262,144 seeded PD systems (the
               utterance- and chunk-mode MVDR of a 12.3 s request, and a
               throughput size), bound 1e-4; times of both and of
-              torch.linalg.solve (library_ms)
+              torch.linalg.solve (library_ms); then mvdr_weights (one MVDR
+              call's weights: steering, phase correction, loaded solve)
+              against mvdr_weights_plain run in complex128 at [rows, F, M]
+              = [2, 129, 6] (utterance mode), [8, 129, 6] (chunk mode),
+              [2, 257, 8] and [128, 129, 6] (a throughput size), on
+              near-rank-1 source SCMs with diffuse noise (bound 1e-4) and
+              on unstructured PD SCMs (bound max(1e-3, 2x the complex64
+              plain version's own distance)), the worst bin's spectral gap;
+              device ms (profiler; queued CUDA events beside it) and wall
+              ms of the kernel, its dependent-latency floor (an estimate,
+              printed on the phase's own lines), of the path it replaced
+              (the eager loop and the hermitian_solve launch) and of
+              torch.linalg.eigh + solve (a reference, not a yardstick)
   9. cascade  full-width MISO1 + MISO3 through CascadeEvaluator.process
               over the phase-5 requests in utterance and chunk mode, and
               MISO1 + MISO2 (joint) in chunk mode: exactly 100 dense_stack,
-              20 stencil and 1 hermitian_solve launches per request,
-              latency, audio-s/s and per-stage PIT SI-SDR; the 5 s request
-              again on the plain path (plain modules and plain solve),
-              beamformed and enhanced waves within 1e-3; a torch.profiler
-              breakdown of one 12.3 s utterance-mode request
+              20 stencil, 1 mvdr_weights and 0 hermitian_solve launches per
+              request, latency, audio-s/s and per-stage PIT SI-SDR; the 5 s
+              request again on the plain path (plain modules and
+              mvdr_weights_plain), beamformed and enhanced waves within
+              1e-3; a torch.profiler breakdown of one 12.3 s
+              utterance-mode request; the MVDR call's host and device ms
+              (the "mvdr.weights" range) beside the replaced path's
  10. css      StreamingCSS over the 12.3 s request, overlap 0 and 8,000:
-              exactly 50 dense_stack, 10 stencil and 1 hermitian_solve
-              launches per block, per-block latency
+              exactly 50 dense_stack, 10 stencil and 1 mvdr_weights
+              launches per block (0 hermitian_solve), per-block latency
  11. lowp-kernels  the bf16 modes of dense_stack and stencil and the int8
               kernel dense_stack_int8 against their plain versions at the
               phase-3 shapes (and the bf16 stencil at the enhancement
@@ -100,7 +114,7 @@ Phases (one or more JSON lines each; any failure exits non-zero):
  14. serve    the phase-5 requests through the bf16 and the int8 model
  15. cascade  the bf16 cascade (MISO3 utterance and chunk mode, MISO2
               joint): 100 dense_stack_bf16, 20 stencil_bf16 and 1
-              hermitian_solve launches per request
+              mvdr_weights launches per request
  16. css      bf16 StreamingCSS blocks: 50 / 10 / 1 launches per block
  17. bf16-bwd-kernels  the bf16 mode of stencil_bwd at phase 6's cases
               and the enhancement nets' enc0 and final layers, against its
@@ -161,7 +175,7 @@ for every float32 conv, a third of the dense TF32 tensor-core rate (three
 TF32 passes, the card's fastest float32-accurate route, which the
 float32 stencil and stencil_bwd take), with the bound at the float32
 CUDA-core rate beside it on each case's line as fma_bound_ms; the float32 CUDA-core rate for
-hermitian_solve; the dense bf16 and int8 tensor-core rates for the bf16
+hermitian_solve and mvdr_weights; the dense bf16 and int8 tensor-core rates for the bf16
 and int8 modes.
 """
 
@@ -200,6 +214,13 @@ TRAIN_B = 8    # utterances of 4 s per train step (bench.py --train)
 TRAIN_STEPS = 5
 REQUEST_S = (5.0, 9.0, 12.3)  # synthetic requests of phases 5 and 9
 SOLVE_BATCHES = (258, 1032, 262144)  # systems per hermitian_solve call
+# [rows, F, M] of mvdr_weights calls: utterance and chunk mode of a 12.3 s
+# request (the main path's), M = 8 at F = 257, a throughput size (16,512
+# bins: cuSOLVER's batched eigh, the reference route, refused 32,250)
+WEIGHT_SHAPES = ((2, 129, 6), (8, 129, 6), (2, 257, 8), (128, 129, 6))
+WEIGHT_MAIN = WEIGHT_SHAPES[:2]
+SIM_BOUND = 1e-4  # mvdr_weights vs complex128 on near-rank-1 SCMs
+PD_BOUND = 1e-3   # the same on unstructured SCMs, or 2x complex64's error
 PERTURB = 3e-6  # relative input perturbation of the sensitivity probe
 # the parameters whose gradients come out of stencil_bwd (the fused body)
 BODY = re.compile(r"^(enc[0-4]|enc[0-4]_dense|dec[2-6]|dec[2-6]_dense)\.")
@@ -302,6 +323,7 @@ KERNEL_FUNCTIONS = {
     "stencil_bwd": ("dgrad_tc_kernel", "wgrad_tc_kernel"),
     "stencil_bwd_bf16": ("dgrad_tc_kernel", "wgrad_tc_kernel"),
     "hermitian_solve": ("hermitian_solve_kernel",),
+    "mvdr_weights": ("mvdr_weights_kernel",),
     "dense_stack_int8": ("dense_stack_int8_tc_kernel",),
     "quantize_rows": ("quantize_rows_kernel",),
     "pack_tf32": ("pack_tf32_kernel",),
@@ -1218,7 +1240,8 @@ def step_ms(step, state, batch, n):
 
 
 # the port's torch.profiler ranges (ops/stft.py, beamforming/mvdr.py)
-RANGES = ("stft", "istft", "mvdr.scm", "mvdr.power_iteration")
+RANGES = ("stft", "istft", "mvdr.scm", "mvdr.power_iteration",
+          "mvdr.weights")
 
 
 # the host-side CUDA calls that put work on the device (kernel launches,
@@ -1294,6 +1317,7 @@ def profile_window(fn):
     gaps = [(seen[c] - t) / 1e3 for c, t in launched.items() if c in seen]
     groups = {"dense_stack": 0.0, "dense_stack_int8": 0.0, "int8_rows": 0.0,
               "stencil": 0.0, "stencil_bwd": 0.0, "hermitian_solve": 0.0,
+              "mvdr_weights": 0.0,
               "reduce_stats": 0.0, "pack_tf32": 0.0, "other": 0.0}
     calls = dict.fromkeys(groups, 0)
     other = {}
@@ -1334,6 +1358,8 @@ def profile_window(fn):
             group = "stencil_bwd"
         elif "hermitian_solve_kernel" in name:
             group = "hermitian_solve"
+        elif "mvdr_weights_kernel" in name:
+            group = "mvdr_weights"
         elif "reduce_stats_kernel" in name:
             group = "reduce_stats"
         elif "pack_tf32_kernel" in name:
@@ -1643,23 +1669,227 @@ def phase_solve(records):
                 None if total is None or lost else total + dev_ms)
 
 
+def weights_flops(m: int, iters: int = 100) -> int:
+    """Floating-point operations of one bin in mvdr_weights_kernel: the
+    start R 1 with its norm and scaling, each trip (the M x M complex
+    matvec at 8 a complex multiply-add, |w|^2, square root, reciprocal,
+    scaling), the normalization (M complex divisions at 11 each, the norm,
+    the square roots, scaling), the phasor (M complex multiply-adds, |s|,
+    reciprocal, scaling, one complex product of the scan), the correction
+    (M complex products), the solve (solve_flops), d^H x and the final
+    divisions."""
+    start = 2 * m * (m - 1) + 4 * m + 2 + 2 * m
+    trip = 8 * m * m + 4 * m + 2 + 2 * m
+    normalize = 11 * m + 4 * m + 3 + 2 * m
+    phasor = 8 * m + 3 + 2 + 6
+    return (start + iters * trip + normalize + phasor + 6 * m
+            + solve_flops(m) + 8 * m + 11 * m)
+
+
+def weights_latency_ms(m: int, clock_mhz: float, iters: int = 100) -> float:
+    """An estimate of the dependent-latency floor of one bin's power
+    iteration, which no number of SMs shortens: per trip one matvec output
+    (a complex product and M - 1 dependent adds, M + 1 steps), |w|^2 summed
+    over the M outputs (2M dependent FMAs), at 4 cycles a step, plus ~40
+    cycles for the IEEE square root and ~30 for the reciprocal, and 2 steps
+    of scaling and select; at the card's maximum SM clock."""
+    cycles = 4 * ((m + 1) + 2 * m + 2) + 40 + 30
+    return iters * cycles / (clock_mhz * 1e3)
+
+
+def queued_ms(fn, reps: int = 20, spin_cycles: int = 2_000_000) -> float:
+    """Median device time of one call of ``fn`` from CUDA events recorded
+    behind a spinning kernel, so that the events, the call's launches and
+    nothing else sit queued back to back when the device reaches them:
+    the host's launch time is left out (``spin_cycles`` must outlast it)."""
+    start = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    stop = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    fn()
+    for a, b in zip(start, stop):
+        torch.cuda._sleep(spin_cycles)
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in zip(start, stop)]))
+
+
+def wall_ms(fn, reps: int = 5) -> float:
+    """Median host time of one call of ``fn`` through its synchronize."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def sim_scms(rng, rows, f, m, frames=16):
+    """Hermitized source and noise SCMs [rows, F, M, M] on the card of the
+    simulation of tests/test_mvdr.py: one far-field source with random
+    steering (near-rank-1 source SCMs) + diffuse noise at 0.1."""
+    from misonet_tpu_torch.beamforming.mvdr import spatial_covariance
+
+    def c(shape, scale=1.0):
+        return torch.complex(rand(rng, shape, scale=scale),
+                             rand(rng, shape, scale=scale))
+
+    steer = c((rows, f, m))
+    steer = steer / (steer[..., :1].abs()
+                     * torch.sign(steer[..., :1].real + 1e-9))
+    source = torch.einsum("nfc,ntf->nctf", steer, c((rows, frames, f)))
+    return (spatial_covariance(source),
+            spatial_covariance(c((rows, m, frames, f), 0.1)))
+
+
+def pd_scms(rng, rows, f, m):
+    """Unstructured Hermitian PD source and noise SCMs [rows, F, M, M]
+    (pd_systems' matrices), whose spectral gaps are often small."""
+    return tuple(pd_systems(rng, rows * f, m)[0].reshape(rows, f, m, m)
+                 for _ in range(2))
+
+
+def replaced_weights(rs, rn, ref_ch=0):
+    """The MVDR weights as the port computed them before mvdr_weights: the
+    eager power iteration, normalization, phase correction and one
+    hermitian_solve launch (beamforming/mvdr.py's four functions)."""
+    from misonet_tpu_torch.beamforming import mvdr
+
+    with torch.profiler.record_function("mvdr.weights"):
+        d = mvdr.principal_eigenvector(rs)
+        d = mvdr.normalize_steering(d, ref_ch)
+        d = mvdr.phase_correct(d)
+        return mvdr.mvdr_weights(d, rn)
+
+
+def lapack_weights(rs, rn, ref_ch=0, diag=1e-6):
+    """The reference's route (tester.py: eigh, gesv) for the same function:
+    the top eigenvector from torch.linalg.eigh, the port's normalization
+    and phase correction, torch.linalg.solve.  Timed as a reference only:
+    no single PyTorch call computes the weights."""
+    from misonet_tpu_torch.beamforming import mvdr
+
+    d = torch.linalg.eigh(rs)[1][..., -1]
+    d = mvdr.phase_correct(mvdr.normalize_steering(d, ref_ch))
+    eye = diag * torch.eye(rs.shape[-1], dtype=rs.dtype, device=rs.device)
+    x = torch.linalg.solve(rn + eye, d[..., None])[..., 0]
+    return x / (d.conj() * x).sum(-1, keepdim=True)
+
+
+def phase_weights(records, device_line):
+    """mvdr_weights against mvdr_weights_plain run in complex128 at
+    WEIGHT_SHAPES, on near-rank-1 (sim) and unstructured (pd) SCMs; times
+    of the kernel, of the path it replaced and of the LAPACK route.  The
+    record takes the main path's shapes (WEIGHT_MAIN) and sim SCMs."""
+    from misonet_tpu_torch.ops.kernels.mvdr_weights import (
+        mvdr_weights, mvdr_weights_plain)
+
+    rec = records["mvdr_weights"]
+    rec["library_ms"] = None   # no single PyTorch call computes it
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    # the events' own floor: a one-element add queued the same way
+    one = torch.zeros(1, device="cuda")
+    floor_q = queued_ms(lambda: one.add_(1))
+    rng = np.random.default_rng(SEED + 11)
+    for rows, f, m in WEIGHT_SHAPES:
+        for seeding in ("sim", "pd"):
+            rs, rn = (sim_scms if seeding == "sim" else pd_scms)(
+                rng, rows, f, m)
+            want = widened(mvdr_weights_plain)(rs, rn)
+            plain32 = mvdr_weights_plain(rs, rn)
+            own = norm_err(plain32.to(want.dtype), want)[1]
+            bound = SIM_BOUND if seeding == "sim" else max(PD_BOUND, 2 * own)
+            lam = torch.linalg.eigvalsh(widen(rs).cpu())
+            gap = ((lam[..., -1] - lam[..., -2])
+                   / lam[..., -1].clamp(min=1e-300)).min().item()
+            case = f"mvdr_weights [{rows}, {f}, {m}] {seeding}"
+            got = mvdr_weights(rs, rn)
+            torch.cuda.synchronize()
+            if got.shape != want.shape or not torch.isfinite(got).all():
+                fail(f"{case}: bad output {tuple(got.shape)}")
+            err = norm_err(got.to(want.dtype), want)
+            print(json.dumps({
+                "phase": "weights-kernel", "case": case,
+                "max_norm_err": err[1], "max_abs_err": err[0],
+                "bound": bound, "plain_f32_max_norm_err": own,
+                "worst_spectral_gap": gap}), flush=True)
+            if err[1] > bound:
+                fail(f"{case}: normalized error {err[1]} above {bound}")
+            if seeding == "pd":
+                continue
+            main = (rows, f, m) in WEIGHT_MAIN
+            # queued CUDA events with 100 trips and with none (what the
+            # trips cost); the kernel's own duration from the profiler
+            # (the events add the launch's own device time)
+            times = queued_ms(lambda: mvdr_weights(rs, rn))
+            no_trips = queued_ms(
+                lambda: mvdr_weights(rs, rn, power_iters=0))
+            prof = profile_call(
+                lambda: [mvdr_weights(rs, rn) for _ in range(10)])
+            kernel_ms = prof["ms"]["mvdr_weights"] / 10
+            if prof["device_events_lost"] or not kernel_ms:
+                kernel_ms = times   # the events' upper bound
+            kernel_wall = wall_ms(lambda: mvdr_weights(rs, rn), reps=20)
+            plain_ms = cuda_ms(lambda: mvdr_weights_plain(rs, rn), reps=3)
+            bound_t, t_ops, t_bytes = bound_ms(
+                rows * f * weights_flops(m), (rs, rn), want.to(rs.dtype))
+            floor = weights_latency_ms(m, clock)
+            old = {"wall_ms": wall_ms(lambda: replaced_weights(rs, rn),
+                                      reps=3),
+                   "device_ms": profile_call(
+                       lambda: replaced_weights(rs, rn))["device_busy_ms"]}
+            lapack = lapack_weights(rs, rn)
+            ref = {"ms": cuda_ms(lambda: lapack_weights(rs, rn), reps=3),
+                   "max_norm_err": norm_err(lapack.to(want.dtype), want)[1]}
+            print(json.dumps({
+                "phase": "weights-kernel", "case": case,
+                "kernel_device_ms": kernel_ms,
+                "device_events_lost": prof["device_events_lost"],
+                "queued_ms": times,
+                "queued_ms_0_trips": no_trips, "queued_floor_ms": floor_q,
+                "kernel_wall_ms": kernel_wall, "plain_ms": plain_ms,
+                "bound_ms": bound_t,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "latency_floor_ms": floor, "sm_clock_max_mhz": clock,
+                "gflop": rows * f * weights_flops(m) / 1e9,
+                "replaced_path": old, "eigh_solve": ref,
+                "device": device_line}), flush=True)
+            if main:
+                rec["max_abs_err"] = max(rec["max_abs_err"], err[0])
+                rec["max_norm_err"] = max(rec["max_norm_err"], err[1])
+                rec["ms"] += kernel_ms
+                rec["queued_ms"] = rec.get("queued_ms", 0.0) + times
+                rec["plain_ms"] += plain_ms
+                rec["bound_ms"] += bound_t
+                rec["ops_ms"] += t_ops
+                rec["bytes_ms"] += t_bytes
+
+
 @contextlib.contextmanager
 def plain_path(models):
-    """``models`` on their plain modules and the MVDR on the plain solve,
-    for a reference run on the card."""
+    """``models`` on their plain modules and the MVDR on its plain weights
+    (and plain solve), for a reference run on the card."""
     from misonet_tpu_torch.beamforming import mvdr
     from misonet_tpu_torch.ops.kernels.hermitian_solve import (
         hermitian_solve_plain)
+    from misonet_tpu_torch.ops.kernels.mvdr_weights import mvdr_weights_plain
 
     cfgs = [m.cfg for m in models]
-    solve = mvdr.hermitian_solve
+    solve, weights = mvdr.hermitian_solve, mvdr.fused_weights
     for m in models:
         m.cfg = dataclasses.replace(m.cfg, flat_dense=False)
     mvdr.hermitian_solve = hermitian_solve_plain
+    mvdr.fused_weights = mvdr_weights_plain
     try:
         yield
     finally:
-        mvdr.hermitian_solve = solve
+        mvdr.hermitian_solve, mvdr.fused_weights = solve, weights
         for m, c in zip(models, cfgs):
             m.cfg = c
 
@@ -1681,7 +1911,8 @@ def phase_cascade(cfg, device, device_line, records, mode="float32"):
     over the phase-5 requests, MISO1 + MISO2 (joint) in chunk mode, exact
     launch counts per request; in float32 also the plain path on the 5 s
     request and a profile of one 12.3 s utterance-mode request."""
-    from misonet_tpu_torch.beamforming.mvdr import principal_eigenvector
+    from misonet_tpu_torch.beamforming.mvdr import (
+        principal_eigenvector, steering_weights)
     from misonet_tpu_torch.config import DatasetConfig, StftConfig
     from misonet_tpu_torch.inference.evaluate import CascadeEvaluator
     from misonet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
@@ -1694,12 +1925,12 @@ def phase_cascade(cfg, device, device_line, records, mode="float32"):
     requests = [synth_request(rng, s) for s in REQUEST_S]
     stages = [("separated", "miso1"), ("beamformed", "beamform"),
               ("enhanced", "enhanced")]
-    want = expect(mode, 100, 20, hermitian_solve=1)
+    want = expect(mode, 100, 20, mvdr_weights=1)
     runs = [("utterance", "miso3", miso3, False, requests),
             ("chunk", "miso3", miso3, False, requests),
             ("chunk", "miso2", miso2, True, requests[-1:])]
     evaluators = {}
-    solves = 0
+    weights = 0
     for bf_mode, enh_name, enh, joint, reqs in runs:
         ev = CascadeEvaluator(miso1, stft_cfg, ds, enhance_model=enh,
                               joint=joint,
@@ -1715,7 +1946,7 @@ def phase_cascade(cfg, device, device_line, records, mode="float32"):
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             counts = launch_counts()
-            solves += counts["hermitian_solve"]
+            weights += counts["mvdr_weights"]
             print(json.dumps({"phase": "cascade", "precision": mode,
                               "mode": bf_mode,
                               "enhance": enh_name, "audio_s": secs,
@@ -1731,9 +1962,9 @@ def phase_cascade(cfg, device, device_line, records, mode="float32"):
                      f"{counts}, expected {want}")
     if mode != "float32":
         return
-    records["hermitian_solve"]["launches"] = solves
+    records["mvdr_weights"]["launches"] = weights
 
-    # the 5 s request on the plain path: plain modules, plain solve
+    # the 5 s request on the plain path: plain modules, plain MVDR weights
     mix, refs = requests[0]
     for bf_mode in ("utterance", "chunk"):
         ev = evaluators[bf_mode, "miso3"]
@@ -1787,11 +2018,27 @@ def phase_cascade(cfg, device, device_line, records, mode="float32"):
                       "[2, 129, 6, 6]", "wall_ms": wall,
                       "device_ms": cuda_ms(lambda: principal_eigenvector(r),
                                            reps=5)}), flush=True)
+    # the MVDR call's weights at that batch, before (the eager loop and a
+    # hermitian_solve launch) and after (one mvdr_weights launch): host and
+    # device ms of the "mvdr.weights" range
+    rn, _ = pd_systems(np.random.default_rng(SEED + 12), 2 * 129)
+    rn = rn.reshape(2, 129, 6, 6)
+    for path, fn in (("before", lambda: replaced_weights(r, rn)),
+                     ("after", lambda: steering_weights(r, rn))):
+        prof = profile_call(fn)
+        print(json.dumps({"phase": "cascade", "mvdr_weights_call": path,
+                          "shape": [2, 129, 6, 6],
+                          **prof["ranges"].get("mvdr.weights", {}),
+                          "kernels": prof["kernels"],
+                          "device_busy_ms": prof["device_busy_ms"],
+                          "wall_ms": prof["wall_ms"],
+                          "device_events_lost": prof["device_events_lost"],
+                          "device": device_line}), flush=True)
 
 
 def phase_css(cfg, device, device_line, mode="float32"):
     """StreamingCSS over the 12.3 s request, edge to edge and cross-faded:
-    exactly 50 dense_stack, 10 stencil (of ``mode``) and 1 hermitian_solve
+    exactly 50 dense_stack, 10 stencil (of ``mode``) and 1 mvdr_weights
     launches per block."""
     from misonet_tpu_torch.config import DatasetConfig, StftConfig
     from misonet_tpu_torch.inference.css import StreamingCSS
@@ -1813,7 +2060,7 @@ def phase_css(cfg, device, device_line, mode="float32"):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counts = launch_counts()
-        want = expect(mode, 50 * blocks, 10 * blocks, hermitian_solve=blocks)
+        want = expect(mode, 50 * blocks, 10 * blocks, mvdr_weights=blocks)
         print(json.dumps({"phase": "css", "precision": mode,
                           "overlap": overlap,
                           "blocks": blocks, "audio_s": mix.shape[0] / ds.fs,
@@ -1841,7 +2088,7 @@ def phase_cli(device_line):
     batch 4 and one epoch, then Extraction -> Train MISO1 -> a resume for
     a second epoch -> Train MISO3 -> Test MISO3 (2 utterances) -> Test CSS
     (1 utterance).  Checks finite losses, the checkpoints, the written
-    wavs, stencil_bwd_bf16 launches in both trainings and hermitian_solve
+    wavs, stencil_bwd_bf16 launches in both trainings and mvdr_weights
     launches in MISO3's feature step; times each command."""
     import tempfile
     from pathlib import Path
@@ -1917,7 +2164,7 @@ def phase_cli(device_line):
         counts3 = run("train_miso3", "-m", "Train", "-t", "MISO3")
         hist3 = history("miso3", "epoch000")
         if not (counts3.get("stencil_bwd_bf16")
-                and counts3.get("hermitian_solve")):
+                and counts3.get("mvdr_weights")):
             fail(f"cli: MISO3 training launched {counts3}")
         run("test_miso3", "-m", "Test", "-t", "MISO3", "--max-utts", "2")
         run("test_css", "-m", "Test", "-t", "CSS", "--max-utts", "1")
@@ -2328,6 +2575,8 @@ def main() -> int:
              "dense_stack"),
             ("dense_layer_bf16", "misonet_tpu/ops/pallas/dense_flat.py:240",
              "dense_stack"),
+            ("mvdr_weights", "misonet_tpu/ops/pallas/mvdr_solve.py:93",
+             None),
         ]
     }
     tc_ops = tensor_core_ops(lib)
@@ -2360,8 +2609,9 @@ def main() -> int:
     # 7. train
     timed("train", phase_train, cfg, device, records)
 
-    # 8. solve-kernel
+    # 8. solve-kernel, then the MVDR weights kernel
     timed("solve-kernel", phase_solve, records)
+    timed("weights-kernel", phase_weights, records, smi)
 
     # 9. cascade
     timed("cascade", phase_cascade, cfg, device, smi, records)
@@ -2412,12 +2662,14 @@ def main() -> int:
     print(json.dumps({"phase": "timing", "seconds": seconds}), flush=True)
 
     # every time is the sum over that kernel's main-path cases in phase 3,
-    # 6, 8, 11, 17 or 20; launches are those of the train path's run (phase
-    # 7 for the float32 modes and pack_tf32, and phase 18 for
-    # stencil_bwd_bf16), of the cascade's requests
-    # (phase 9) for hermitian_solve, of the bf16 and int8 forwards (phases
-    # 12-13) for their forward modes and quantize_rows, and of phase 20's
-    # driven run for dense_layer
+    # 6, 8, 11, 17 or 20 (mvdr_weights: the kernel's duration from the
+    # profiler, queued CUDA events where the profiler lost it); launches
+    # are those of the train path's run (phase 7 for the float32 modes and
+    # pack_tf32, and phase 18 for stencil_bwd_bf16), of the cascade's
+    # requests (phase 9) for mvdr_weights (hermitian_solve: 0, no path
+    # runs it since the weights kernel took its solve), of the bf16 and
+    # int8 forwards (phases 12-13) for their forward modes and
+    # quantize_rows, and of phase 20's driven run for dense_layer
     for r in records.values():
         r["bound_by"] = ("operations" if r.pop("ops_ms") >= r.pop("bytes_ms")
                          else "bytes")

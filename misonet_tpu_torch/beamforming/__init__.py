@@ -6,6 +6,7 @@ from misonet_tpu_torch.beamforming.mvdr import (
     phase_correct,
     principal_eigenvector,
     spatial_covariance,
+    steering_weights,
 )
 from misonet_tpu_torch.beamforming.scm import (
     chunked_scm,

@@ -9,9 +9,13 @@ tester.py:637-794).
   weights                    one batched Hermitian solve (kernel 4,
                              ``ops/kernels/hermitian_solve.py``)
 
+On the card ``steering_weights`` runs steering, phase correction and
+weights in one launch (``ops/kernels/mvdr_weights.py``); the functions of
+each stage stay for the CPU path and the tests.
+
 Spectrograms are [..., C, T, F]; every leading axis is a batch axis, and
 the mixture may broadcast against the source (one mixture, S speakers), so
-a request's speakers and chunks ride one call and one solve launch.
+a request's speakers and chunks ride one call and one launch.
 
 TF32 is kept out of the complex contractions.  The SCMs sum 500-8,000
 frames per entry: they contract in complex128 (``frame_outer_sum``) and
@@ -28,6 +32,9 @@ from __future__ import annotations
 import torch
 
 from misonet_tpu_torch.ops.kernels.hermitian_solve import hermitian_solve
+from misonet_tpu_torch.ops.kernels.mvdr_weights import (
+    mvdr_weights as fused_weights,
+)
 
 
 def frame_outer_sum(x: torch.Tensor) -> torch.Tensor:
@@ -103,7 +110,9 @@ def phase_correct(d: torch.Tensor) -> torch.Tensor:
     mag = s.abs()
     unit = torch.where(mag > 0, s / torch.clamp(mag, min=1e-30),
                        torch.ones_like(s))
-    factors = torch.cat([torch.ones_like(s[..., :1]), unit.conj()], dim=-1)
+    # p[0] = 1 (its own shape: with F = 1, s has no entry to copy one from)
+    first = torch.ones(s.shape[:-1] + (1,), dtype=s.dtype, device=s.device)
+    factors = torch.cat([first, unit.conj()], dim=-1)
     return d * torch.cumprod(factors, dim=-1)[..., None]
 
 
@@ -118,6 +127,18 @@ def mvdr_weights(steering: torch.Tensor, noise_scm: torch.Tensor,
                             diag=diag_load)
     denom = (steering.conj() * numer).sum(-1, keepdim=True)
     return numer / denom
+
+
+def steering_weights(source_scm: torch.Tensor, noise_scm: torch.Tensor,
+                     ref_ch: int = 0, diag_load: float = 1e-6,
+                     power_iters: int = 100) -> torch.Tensor:
+    """The MVDR weights from hermitized SCMs [..., F, M, M] -> [..., F, M]:
+    principal_eigenvector -> normalize_steering -> phase_correct ->
+    mvdr_weights, as one ``mvdr_weights`` kernel launch on the card (the
+    same four functions on the CPU)."""
+    with torch.profiler.record_function("mvdr.weights"):
+        return fused_weights(source_scm.contiguous(), noise_scm.contiguous(),
+                             ref_ch, diag_load, power_iters)
 
 
 def condition_covariance(r: torch.Tensor, gamma: float) -> torch.Tensor:
@@ -157,13 +178,12 @@ def mvdr_beamform(source: torch.Tensor, mixture: torch.Tensor,
 
     Source SCM, noise SCM from (mixture - source), power-iteration
     steering, ref-mic and sqrt(M/||d||) normalization, phase correction,
-    diagonally loaded Hermitian solve, y = w^H x."""
+    diagonally loaded Hermitian solve (``steering_weights``), y = w^H x."""
     source_scm = spatial_covariance(source)
     noise_scm = spatial_covariance(mixture - source)
-    d = principal_eigenvector(source_scm, power_iters)
-    d = normalize_steering(d, ref_ch)
-    d = phase_correct(d)
-    return apply_weights(mvdr_weights(d, noise_scm, diag_load), mixture)
+    w = steering_weights(source_scm, noise_scm, ref_ch, diag_load,
+                         power_iters)
+    return apply_weights(w, mixture)
 
 
 def apply_weights(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -5,10 +5,8 @@
 // an M x M complex Hermitian positive-definite matrix (M = 6 mics on the MVDR
 // path), by an unrolled complex Cholesky R + diag I = L L^H, then forward
 // (L y = d) and back (L^H x = y) substitution.  The arithmetic is the TPU
-// kernel's, in its order: the same entries are read (the real part of the
-// diagonal and the lower triangle r[i][j], i > j), each pivot is clamped at
-// 1e-30 before the square root, and rows are scaled by the reciprocal pivot.
-// The MVDR normalization x / (d^H x) stays with the caller.
+// kernel's, in its order (csrc/hermitian_chol.cuh, which mvdr_weights_kernel
+// shares).  The MVDR normalization x / (d^H x) stays with the caller.
 //
 // The TPU kernel laid the batch across vector lanes ([M, M, N] re/im planes,
 // padded to 8,192 systems).  Here one thread solves one system, with M a
@@ -28,6 +26,8 @@
 // threads' strided reads fall on distinct banks.
 
 #include <cuda_runtime.h>
+
+#include "hermitian_chol.cuh"
 
 namespace misonet {
 namespace {
@@ -57,59 +57,13 @@ hermitian_solve_kernel(const float2* __restrict__ r,
 
   const int t = threadIdx.x;
   if (t < cnt) {
-    const float2* a = rs + t * SR;
     float2* v = ds + t * SD;
-    // ---- Cholesky: R + diag I = L L^H (lower triangle of L, i > j) ----
-    float lr[M][M], li[M][M], inv[M];
+    float2 b[M], xt[M];
 #pragma unroll
-    for (int j = 0; j < M; ++j) {
-      float ajj = a[j * M + j].x + diag;
+    for (int j = 0; j < M; ++j) b[j] = v[j];
+    hermitian_chol_solve<M>(rs + t * SR, b, diag, xt);
 #pragma unroll
-      for (int k = 0; k < j; ++k)
-        ajj = ajj - (lr[j][k] * lr[j][k] + li[j][k] * li[j][k]);
-      inv[j] = 1.f / sqrtf(fmaxf(ajj, 1e-30f));
-#pragma unroll
-      for (int i = j + 1; i < M; ++i) {
-        float sr = a[i * M + j].x, si = a[i * M + j].y;
-#pragma unroll
-        for (int k = 0; k < j; ++k) {
-          // s -= L[i,k] * conj(L[j,k])
-          sr = sr - (lr[i][k] * lr[j][k] + li[i][k] * li[j][k]);
-          si = si - (li[i][k] * lr[j][k] - lr[i][k] * li[j][k]);
-        }
-        lr[i][j] = sr * inv[j];
-        li[i][j] = si * inv[j];
-      }
-    }
-    // ---- forward substitution: L y = d ----
-    float yr[M], yi[M];
-#pragma unroll
-    for (int j = 0; j < M; ++j) {
-      float sr = v[j].x, si = v[j].y;
-#pragma unroll
-      for (int k = 0; k < j; ++k) {
-        sr = sr - (lr[j][k] * yr[k] - li[j][k] * yi[k]);
-        si = si - (lr[j][k] * yi[k] + li[j][k] * yr[k]);
-      }
-      yr[j] = sr * inv[j];
-      yi[j] = si * inv[j];
-    }
-    // ---- back substitution: L^H x = y ----
-    float xr[M], xi[M];
-#pragma unroll
-    for (int i = M - 1; i >= 0; --i) {
-      float sr = yr[i], si = yi[i];
-#pragma unroll
-      for (int k = i + 1; k < M; ++k) {
-        // s -= conj(L[k,i]) * x[k]
-        sr = sr - (lr[k][i] * xr[k] + li[k][i] * xi[k]);
-        si = si - (lr[k][i] * xi[k] - li[k][i] * xr[k]);
-      }
-      xr[i] = sr * inv[i];
-      xi[i] = si * inv[i];
-    }
-#pragma unroll
-    for (int j = 0; j < M; ++j) v[j] = make_float2(xr[j], xi[j]);
+    for (int j = 0; j < M; ++j) v[j] = xt[j];
   }
   __syncthreads();
 

@@ -9,7 +9,7 @@ loading at data.py:133-145, :190-199).
 
 This module is the save side, on the device and batched: run the
 frozen-MISO1 full-array decode + MVDR (all speakers in one
-``hermitian_solve`` launch) over a shard directory and write companion
+``mvdr_weights`` launch) over a shard directory and write companion
 ``<shard>.feat.npz`` files holding the ref-channel MISO1 and beamformed
 complex spectrograms.  ``ShardDataset`` picks the companions up via
 ``with_features=True`` and ``EnhanceTrainer`` can then skip its feature

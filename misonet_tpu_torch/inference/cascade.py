@@ -3,7 +3,7 @@
 tester.py:846-975).
 
 The JAX package ``vmap``s the MVDR over speakers; here the speakers are a
-batch axis of one ``mvdr_beamform`` call (one solve launch), and MISO3's
+batch axis of one ``mvdr_beamform`` call (one weights launch), and MISO3's
 per-speaker passes are folded into the batch of one forward.  The
 conditioning channels go in the JAX package's (MISO1, BF) order.
 """

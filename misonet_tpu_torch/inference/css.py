@@ -4,7 +4,7 @@ package's ``run.py -m Test -t CSS``).
 
 Audio arrives in fixed 4 s blocks.  Each block runs the MISO1 decode; a
 running, optionally exponentially forgetting, SCM pair per speaker feeds an
-MVDR whose weights adapt as evidence accumulates (one ``hermitian_solve``
+MVDR whose weights adapt as evidence accumulates (one ``mvdr_weights``
 launch per block).  Block outputs are concatenated edge to edge
 (``overlap=0``, the reference's chunked semantics, tester.py:949-967) or,
 with ``overlap>0``, blocks advance by chunk - overlap samples and a
@@ -22,10 +22,7 @@ from misonet_tpu_torch.beamforming.mvdr import (
     apply_weights,
     frame_outer_sum,
     hermitize,
-    mvdr_weights,
-    normalize_steering,
-    phase_correct,
-    principal_eigenvector,
+    steering_weights,
 )
 from misonet_tpu_torch.config import DatasetConfig, StftConfig
 from misonet_tpu_torch.inference.separate import align_slots, make_full_array_decode
@@ -97,10 +94,7 @@ class StreamingCSS:
         r_s = hermitize(source_scm) / frames
         r_n = hermitize(noise_scm) / frames
 
-        d_vec = principal_eigenvector(r_s)
-        d_vec = normalize_steering(d_vec, ref_ch)
-        d_vec = phase_correct(d_vec)
-        bf = apply_weights(mvdr_weights(d_vec, r_n), mix)   # [S, T, F]
+        bf = apply_weights(steering_weights(r_s, r_n, ref_ch), mix)  # [S,T,F]
         return CSSState(source_scm, noise_scm, frames, mag), bf, m_ref
 
     def process_block(self, state: CSSState, block_wave: np.ndarray):

@@ -22,7 +22,7 @@ As in the JAX package, the enhance nets always run per chunk: with
 utterance-mode beamforming the utterance-grid BF wave is cut back onto the
 chunk frame grid first, since running MISO2/3 on the bucket-padded
 utterance grid would push zero-pad frames into the IN/gLN statistics.
-Every MVDR of a request is one ``hermitian_solve`` launch (all chunks x
+Every MVDR of a request is one ``mvdr_weights`` launch (all chunks x
 speakers x bins in chunk mode, speakers x bins in utterance mode).
 """
 

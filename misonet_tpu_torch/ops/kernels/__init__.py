@@ -11,11 +11,12 @@ from misonet_tpu_torch.ops.kernels.dense_layer import dense_layer
 from misonet_tpu_torch.ops.kernels.dense_stack import dense_stack
 from misonet_tpu_torch.ops.kernels.dense_stack_int8 import dense_stack_int8
 from misonet_tpu_torch.ops.kernels.hermitian_solve import hermitian_solve
+from misonet_tpu_torch.ops.kernels.mvdr_weights import mvdr_weights
 from misonet_tpu_torch.ops.kernels.stencil import stencil
 from misonet_tpu_torch.ops.kernels.stencil_bwd import stencil_bwd
 
 KERNELS = (dense_stack, stencil, stencil_bwd, hermitian_solve,
-           dense_stack_int8, dense_layer)
+           dense_stack_int8, dense_layer, mvdr_weights)
 # (name, wrapper, counter attribute) of every counted kernel mode
 COUNTERS = tuple(
     (k.__name__ + suffix, k, "launches" + suffix)
@@ -33,5 +34,5 @@ def launch_counts() -> dict[str, int]:
     """{mode name: launches}: ``dense_stack``, ``dense_stack_bf16``,
     ``stencil``, ``stencil_bf16``, ``stencil_bwd``, ``stencil_bwd_bf16``,
     ``hermitian_solve``, ``dense_stack_int8``, ``dense_layer``,
-    ``dense_layer_bf16``."""
+    ``dense_layer_bf16``, ``mvdr_weights``."""
     return {name: getattr(k, attr) for name, k, attr in COUNTERS}

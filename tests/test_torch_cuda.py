@@ -2,7 +2,8 @@
 its plain PyTorch version (the version the CPU tests hold to the JAX
 package), the fused MISO1 and MISO3 forwards and MISO1 train-step gradients
 (float32 and bf16) against the plain path, the bf16 and int8 forwards'
-launches, and the MVDR stage through the solve kernel.
+launches, and the MVDR stage through the weights kernel (its solve is the
+solve kernel's).
 
 Card only (marker ``cuda``); every test skips itself without a CUDA device.
 This file imports no JAX, so on a machine without JAX it runs with
@@ -30,7 +31,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from chip_smoke import (  # noqa: E402
-    dense_layer_f64, dense_stack_f64, stencil_f64)
+    dense_layer_f64, dense_stack_f64, pd_scms, sim_scms, stencil_f64)
 from misonet_tpu_torch.beamforming.mvdr import mvdr_beamform  # noqa: E402
 from misonet_tpu_torch.config import ModelConfig  # noqa: E402
 from misonet_tpu_torch.losses import loss_enhance  # noqa: E402
@@ -52,6 +53,10 @@ from misonet_tpu_torch.ops.kernels.hermitian_solve import (  # noqa: E402
     hermitian_solve,
     hermitian_solve_plain,
 )
+from misonet_tpu_torch.ops.kernels.mvdr_weights import (  # noqa: E402
+    mvdr_weights,
+    mvdr_weights_plain,
+)
 from misonet_tpu_torch.ops.kernels.stencil import (  # noqa: E402
     out_bins,
     stencil,
@@ -72,7 +77,7 @@ def _counts(**nonzero):
     return {"dense_stack": 0, "dense_stack_bf16": 0, "stencil": 0,
             "stencil_bf16": 0, "stencil_bwd": 0, "stencil_bwd_bf16": 0,
             "hermitian_solve": 0, "dense_stack_int8": 0, "dense_layer": 0,
-            "dense_layer_bf16": 0, **nonzero}
+            "dense_layer_bf16": 0, "mvdr_weights": 0, **nonzero}
 
 
 @pytest.fixture
@@ -249,8 +254,9 @@ def test_hermitian_solve_kernel_matches_plain(cuda, batch, m):
 
 @pytest.mark.cuda
 def test_mvdr_on_the_card_launches_one_solve(cuda):
-    """Speakers x chunks x bins in one call: one kernel launch; the result
-    agrees with the CPU path (the plain solve) to 1e-3 of max-abs."""
+    """Speakers x chunks x bins in one call: one mvdr_weights launch (and
+    no hermitian_solve launch: the weights kernel solves); the result
+    agrees with the CPU path (the plain versions) to 1e-3 of max-abs."""
     rng = np.random.default_rng(9)
     shape = (3, 2, 6, 50, 129)            # chunks, speakers, mics, T, F
     src = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
@@ -258,13 +264,69 @@ def test_mvdr_on_the_card_launches_one_solve(cuda):
                               + 1j * rng.standard_normal((3, 6, 50, 129)))
     src = torch.from_numpy(src.astype(np.complex64))
     mix = torch.from_numpy(mix.astype(np.complex64))[:, None]
-    before = hermitian_solve.launches
+    before = hermitian_solve.launches, mvdr_weights.launches
     got = mvdr_beamform(src.cuda(), mix.cuda())
     torch.cuda.synchronize()
-    assert hermitian_solve.launches == before + 1
+    assert (hermitian_solve.launches, mvdr_weights.launches) == (
+        before[0], before[1] + 1)
     want = mvdr_beamform(src, mix)
     scale = want.abs().max().item()
     assert (got.cpu() - want).abs().max().item() <= 1e-3 * scale
+
+
+# [rows, F, M] of chip_smoke.py phase 8 (utterance and chunk mode, M = 8 at
+# F = 257), and edges: one bin, odd M and ref_ch, a row over several rounds
+# of its blocks (F = 2,500: 313 bins a block, 256 a round)
+WEIGHT_CASES = [((2, 129, 6), 0), ((8, 129, 6), 0), ((2, 257, 8), 0),
+                ((1, 1, 6), 0), ((3, 17, 4), 2), ((1, 2500, 2), 1),
+                ((2, 33, 7), 6)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,ref_ch", WEIGHT_CASES)
+def test_mvdr_weights_kernel_matches_plain(cuda, shape, ref_ch):
+    """The kernel against its plain version run in complex128 on near-rank-1
+    SCMs (chip_smoke.py's sim_scms): 1e-4 of max-abs; one launch a call."""
+    rows, f, m = shape
+    rs, rn = sim_scms(np.random.default_rng(10), rows, f, m)
+    before = mvdr_weights.launches
+    got = mvdr_weights(rs, rn, ref_ch)
+    want = mvdr_weights_plain(rs.to(torch.complex128),
+                              rn.to(torch.complex128), ref_ch)
+    torch.cuda.synchronize()
+    assert mvdr_weights.launches == before + 1
+    assert got.shape == (rows, f, m) and got.dtype == torch.complex64
+    _close(torch.view_as_real(got), torch.view_as_real(want.to(got.dtype)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 129, 6), (8, 129, 6), (2, 257, 8)])
+def test_mvdr_weights_kernel_on_unstructured_scms(cuda, shape):
+    """Unstructured PD SCMs (small spectral gaps): within max(1e-3, 2x the
+    complex64 plain version's own error) of complex128."""
+    rows, f, m = shape
+    rs, rn = pd_scms(np.random.default_rng(11), rows, f, m)
+    want = mvdr_weights_plain(rs.to(torch.complex128),
+                              rn.to(torch.complex128))
+    scale = want.abs().max().item()
+    own = (mvdr_weights_plain(rs, rn) - want).abs().max().item() / scale
+    got = mvdr_weights(rs, rn)
+    err = (got.to(want.dtype) - want).abs().max().item() / scale
+    assert err <= max(1e-3, 2 * own), (err, own)
+
+
+@pytest.mark.cuda
+def test_mvdr_weights_kernel_repeats_and_guards(cuda):
+    """Bit-identical repeats; a zero source SCM takes the 1/sqrt(M) start
+    and keeps it (every trip's |w| is 0), as the plain version does."""
+    rs, rn = sim_scms(np.random.default_rng(12), 2, 129, 6)
+    assert torch.equal(mvdr_weights(rs, rn), mvdr_weights(rs, rn))
+    rs[1, 5] = 0
+    got = mvdr_weights(rs, rn)
+    want = mvdr_weights_plain(rs.to(torch.complex128),
+                              rn.to(torch.complex128))
+    assert torch.isfinite(got).all()
+    _close(torch.view_as_real(got), torch.view_as_real(want.to(got.dtype)))
 
 
 @pytest.mark.cuda

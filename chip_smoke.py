@@ -165,6 +165,31 @@ Phases (one or more JSON lines each; any failure exits non-zero):
               chunked_scm over the group against the unsharded SCM; the
               full-width float32 MISO1 with the sequence-parallel TCN
               against the local model (1e-4); dryrun_multichip(1)
+ 23. ladder   the example programs' functions
+              (misonet_tpu_torch/examples) at ModelConfig()'s full width
+              (bf16) on 64 voiced 4 s utterances: 300 MISO1 steps at batch
+              8 (50 / 10 / 60 launches a step; the loss points, the step
+              time from CUDA events, host seconds), MISO1 on 4 held-out
+              utterances above the mixture by LADDER_MARGIN dB; the
+              float32, bf16 and int8 decodes of the trained weights scored
+              (the int8 cost), and phases 12-13's fused-vs-plain gates
+              rerun on them with a held-out utterance's decode input; 50
+              MISO3 steps on the trained MISO1's features (100 / 20 / 60
+              launches and 1 mvdr_weights a step, 0 hermitian_solve), the
+              stage-wise SI-SDRs, one feature batch's beamformed features
+              against mvdr_weights_plain's within CASCADE_BOUND and its
+              weights against complex128 within phase 8's unstructured
+              bound, the worst spectral gap of the trained SCMs beside
+              phase 8's simulated ones at the same shape; a 20 s scene
+              through StreamingCSS edge to edge and cross-faded over a
+              quarter block (50 / 10 launches and 1 mvdr_weights a block),
+              MISO1 above the mixture
+
+``python3 chip_smoke.py --trained <dir>/<tag>`` runs phase 23's second
+part alone on a MISO1 train state that the example programs saved
+(train_synthetic's "demo", train_cascade's "miso1"), over eval_int8's 8
+voiced held-out utterances: the decodes scored and phases 12-13's gates
+on those weights.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Needs one CUDA device; exits 1
@@ -979,14 +1004,17 @@ def agreement(got, want):
             "corr": corr}
 
 
-def phase_forward(model, cfg, mode="float32", records=None):
+def phase_forward(model, cfg, mode="float32", records=None, x=None,
+                  phase="forward"):
     """The full-width forward: fused against the plain path, exact launch
     counts.  float32: within BOUND.  bfloat16: within BF16_FORWARD_BOUND,
     or twice the plain path's own movement under the PERTURB probe where
-    that is larger.  Returns the fused output."""
+    that is larger.  ``x`` (default: the seeded forward_input) of shape
+    [B, 6, T, 129]; a phase other than "forward" (a rerun on trained
+    weights) skips the profile.  Returns the fused output."""
     from misonet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    x = forward_input()
+    x = forward_input() if x is None else x
     plain_cfg = dataclasses.replace(cfg, flat_dense=False)
     with torch.inference_mode():
         reset_launch_counts()
@@ -1010,7 +1038,7 @@ def phase_forward(model, cfg, mode="float32", records=None):
              "finite/expected")
     err, rel = norm_err(torch.view_as_real(fused), torch.view_as_real(plain))
     bound = BOUND if sens is None else max(BF16_FORWARD_BOUND, 2 * sens)
-    print(json.dumps({"phase": "forward", "precision": mode,
+    print(json.dumps({"phase": phase, "precision": mode,
                       "shape": list(x.shape),
                       "params": sum(p.numel() for p in model.parameters()),
                       "launches_per_forward": counts, "max_abs_err": err,
@@ -1024,6 +1052,8 @@ def phase_forward(model, cfg, mode="float32", records=None):
     if records is not None:
         for name in MODES[mode]:
             records[name]["launches"] = counts[name]
+    if phase != "forward":
+        return fused
     with torch.inference_mode():
         prof = profile_call(lambda: model(x))
     print(json.dumps({"phase": "forward", "precision": mode,
@@ -1067,17 +1097,19 @@ def plain_kernels():
         flat_grad.dense_stack_int8, flat_grad.stencil = saved
 
 
-def phase_forward_int8(model, cfg, bf16_out, records):
+def phase_forward_int8(model, cfg, bf16_out, records, x=None,
+                       phase="forward"):
     """The full-width forward with quant_int8=True: exactly 50
     dense_stack_int8 and 10 bf16 stencil launches; against the same
     composition over the kernels' plain versions, within INT8_FORWARD_BOUND
     or twice that composition's own movement under the PERTURB probe; its
-    distance to the bf16 forward reported."""
+    distance to the bf16 forward reported.  ``x`` and ``phase`` as in
+    phase_forward; ``records`` None on a rerun."""
     from misonet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from misonet_tpu_torch.ops.kernels.dense_stack_int8 import (
         quantize_rows_packed)
 
-    x = forward_input()
+    x = forward_input() if x is None else x
     model.cfg = dataclasses.replace(cfg, quant_int8=True)
     with torch.inference_mode():
         reset_launch_counts()
@@ -1104,7 +1136,7 @@ def phase_forward_int8(model, cfg, bf16_out, records):
         fail("int8 forward output not finite/complex64")
     err, rel = norm_err(torch.view_as_real(fused), torch.view_as_real(plain))
     bound = max(INT8_FORWARD_BOUND, 2 * sens)
-    print(json.dumps({"phase": "forward", "precision": "int8",
+    print(json.dumps({"phase": phase, "precision": "int8",
                       "launches_per_forward": {**counts,
                                                "quantize_rows": rows},
                       "max_abs_err": err,
@@ -1116,6 +1148,8 @@ def phase_forward_int8(model, cfg, bf16_out, records):
     if not rel <= bound:
         fail(f"int8 forward: kernels vs plain composition normalized error "
              f"{rel} above {bound}")
+    if records is None:
+        return
     records["dense_stack_int8"]["launches"] = counts["dense_stack_int8"]
     records["quantize_rows"]["launches"] = rows
     model.cfg = dataclasses.replace(cfg, quant_int8=True)
@@ -2514,6 +2548,202 @@ def phase_parallel(device):
         dist.destroy_process_group()
 
 
+# phase 23: the example programs' functions on a small voiced corpus
+LADDER_UTTS, LADDER_EVAL = 64, 4      # 4 s utterances
+LADDER_STEPS, LADDER_BATCH = 300, 8   # MISO1 steps
+LADDER_STEPS3 = 50                    # MISO3 steps on MISO1's features
+LADDER_CSS_S = 20.0                   # the CSS scene's seconds
+# MISO1 after LADDER_STEPS must beat the mixture by this much (dB): half
+# the smallest improvement of three runs of the phase on one H100 (2.056
+# dB in each, PERF.md §6 "Quality ladder")
+LADDER_MARGIN = 1.0
+
+
+def trained_scms(full, mix):
+    """The source and noise SCMs that mvdr_beamform forms from decoded
+    images ``full`` [B, S, C, T, F] and ``mix`` [B, C, T, F]."""
+    from misonet_tpu_torch.beamforming.mvdr import spatial_covariance
+
+    return (spatial_covariance(full).contiguous(),
+            spatial_covariance(mix[:, None] - full).contiguous())
+
+
+def spectral_gap(rs):
+    """The smallest (lambda_1 - lambda_2) / lambda_1 over the SCMs."""
+    lam = torch.linalg.eigvalsh(widen(rs).cpu())
+    return ((lam[..., -1] - lam[..., -2])
+            / lam[..., -1].clamp(min=1e-300)).min().item()
+
+
+def trained_decodes(model, cfg, stft_cfg, evals, base, device,
+                    device_line):
+    """The float32, bf16 and int8 decodes of a trained bf16 MISO1 scored
+    on ``evals`` (``base``: the mixture's SI-SDR), and phases 12-13's
+    fused-vs-plain agreement rerun on its weights with their gates, over
+    the first held-out utterance's full-array decode input."""
+    from misonet_tpu_torch.examples.common import score_separator
+    from misonet_tpu_torch.models import make_miso1
+    from misonet_tpu_torch.ops.stft import stft_scaled
+
+    model.eval()
+    decodes = {"bfloat16": model}
+    for name, c in (("float32", dataclasses.replace(cfg,
+                                                    compute_dtype="float32")),
+                    ("int8", dataclasses.replace(cfg, quant_int8=True))):
+        decodes[name] = make_miso1(c, 6, device=device)
+        decodes[name].load_state_dict(model.state_dict())
+    scores = {k: score_separator(m, stft_cfg, evals)[1]
+              for k, m in decodes.items()}
+    print(json.dumps({"phase": "ladder", "stage": "decodes",
+                      "mixture_db": base, "si_sdr_db": scores,
+                      "int8_cost_db": scores["bfloat16"] - scores["int8"],
+                      "device": device_line}), flush=True)
+    wave = torch.from_numpy(evals[0]["mix"]).to(device)
+    spec = stft_scaled(wave.T, stft_cfg)
+    x = torch.stack([torch.roll(spec, -sh, dims=0) for sh in range(6)])
+    bf16_out = phase_forward(model, cfg, "bfloat16", x=x,
+                             phase="ladder-forward")
+    phase_forward_int8(model, cfg, bf16_out, None, x=x,
+                       phase="ladder-forward")
+
+
+def phase_ladder(device, device_line):
+    """The example programs' functions at ModelConfig()'s full width (bf16)
+    on a voiced corpus of LADDER_UTTS utterances: MISO1 training (exact
+    launches a step, MISO1 above the mixture by LADDER_MARGIN); the
+    float32, bf16 and int8 decodes of the trained weights scored, and
+    phases 12-13's fused-vs-plain agreement rerun on them with their gates;
+    MISO3 training on the trained MISO1's features (exact launches a
+    step; the beamformed features against mvdr_weights_plain within
+    CASCADE_BOUND, the trained SCMs' spectral gap); a LADDER_CSS_S scene
+    through StreamingCSS (MISO1 above the mixture, one mvdr_weights a
+    block)."""
+    from misonet_tpu_torch.beamforming import mvdr
+    from misonet_tpu_torch.config import DatasetConfig, ModelConfig, StftConfig
+    from misonet_tpu_torch.data.synthetic import synth_mixture
+    from misonet_tpu_torch.examples import css_longform, train_cascade
+    from misonet_tpu_torch.examples.common import (
+        make_corpus, score_separator, train_separator)
+    from misonet_tpu_torch.examples.train_synthetic import build_miso1
+    from misonet_tpu_torch.inference.cascade import beamform_sources
+    from misonet_tpu_torch.inference.css import StreamingCSS
+    from misonet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from misonet_tpu_torch.ops.kernels.mvdr_weights import mvdr_weights_plain
+    from misonet_tpu_torch.ops.stft import stft_scaled
+
+    stft_cfg, ds, cfg = StftConfig(), DatasetConfig(), ModelConfig()
+    corpus = make_corpus(LADDER_UTTS, LADDER_EVAL, ds.chunk_samples, 6,
+                         voiced=True, device=device)
+
+    # 1. MISO1 training (train_synthetic's functions)
+    model = build_miso1(cfg, 6, device)
+    reset_launch_counts()
+    _, log = train_separator(model, stft_cfg, corpus, LADDER_STEPS,
+                             LADDER_BATCH, every=50)
+    counts = launch_counts()
+    want = expect("bfloat16", 50 * LADDER_STEPS, 10 * LADDER_STEPS,
+                  stencil_bwd_bf16=60 * LADDER_STEPS)
+    base, sep = score_separator(model, stft_cfg, corpus.evals)
+    print(json.dumps({"phase": "ladder", "stage": "miso1-train",
+                      "steps": LADDER_STEPS, "batch": LADDER_BATCH,
+                      "utterances": LADDER_UTTS, "loss_points": log.points,
+                      "step_ms_events": log.step_ms,
+                      "host_seconds": log.seconds, "launches": counts,
+                      "mixture_db": base, "miso1_db": sep,
+                      "improvement_db": sep - base, "margin": LADDER_MARGIN,
+                      "device": device_line}), flush=True)
+    if counts != want:
+        fail(f"ladder MISO1 training launched {counts}, expected {want}")
+    if not sep - base > LADDER_MARGIN:
+        fail(f"ladder: MISO1 {sep} dB is not {LADDER_MARGIN} dB above the "
+             f"mixture's {base} dB")
+
+    # 2. the decodes of the trained weights, scored and held to plain
+    trained_decodes(model, cfg, stft_cfg, corpus.evals, base, device,
+                    device_line)
+
+    # 3. MISO3 training on the trained MISO1's features (train_cascade's)
+    _, enh = train_cascade.build_models(cfg, device, joint=False)
+    stage2 = train_cascade.Stage2(model, stft_cfg, joint=False)
+    reset_launch_counts()
+    _, log3 = train_cascade.train_enhancer(enh, stage2, corpus, LADDER_STEPS3,
+                                           LADDER_BATCH, every=10)
+    counts = launch_counts()
+    want = expect("bfloat16", 100 * LADDER_STEPS3, 20 * LADDER_STEPS3,
+                  stencil_bwd_bf16=60 * LADDER_STEPS3,
+                  mvdr_weights=LADDER_STEPS3)
+    stages = train_cascade.eval_stages(enh, stage2, corpus.evals)
+    mix_b, ref_b = next(corpus.batches(LADDER_BATCH, 1, seed=1))
+    with torch.inference_mode():
+        mix = stft_scaled(mix_b.transpose(1, 2), stft_cfg)
+        full = stage2.decode(mix)
+        bf = beamform_sources(full, mix)
+        fused_weights, mvdr.fused_weights = (mvdr.fused_weights,
+                                             mvdr_weights_plain)
+        try:
+            bf_plain = beamform_sources(full, mix)
+        finally:
+            mvdr.fused_weights = fused_weights
+        rs, rn = trained_scms(full, mix)
+        w_fused = fused_weights(rs, rn)
+        w_want = widened(mvdr_weights_plain)(rs, rn)
+        own = norm_err(mvdr_weights_plain(rs, rn).to(w_want.dtype),
+                       w_want)[1]
+    bf_err = norm_err(torch.view_as_real(bf), torch.view_as_real(bf_plain))
+    w_err = norm_err(w_fused.to(w_want.dtype), w_want)[1]
+    w_bound = max(PD_BOUND, 2 * own)
+    gap = spectral_gap(rs)
+    rows, f = rs.shape[0] * rs.shape[1], rs.shape[2]
+    sim_gap = spectral_gap(sim_scms(np.random.default_rng(SEED + 11), rows,
+                                    f, rs.shape[-1])[0])
+    print(json.dumps({"phase": "ladder", "stage": "miso3-train",
+                      "steps": LADDER_STEPS3, "loss_points": log3.points,
+                      "step_ms_events": log3.step_ms,
+                      "host_seconds": log3.seconds, "launches": counts,
+                      "stages_db": stages,
+                      "beamformed_max_norm_err": bf_err[1],
+                      "bound": CASCADE_BOUND,
+                      "weights_vs_complex128": w_err,
+                      "weights_bound": w_bound,
+                      "plain_f32_max_norm_err": own,
+                      "scm_shape": list(rs.shape),
+                      "worst_spectral_gap_trained": gap,
+                      "worst_spectral_gap_sim": sim_gap,
+                      "device": device_line}), flush=True)
+    if counts != want:
+        fail(f"ladder MISO3 training launched {counts}, expected {want}")
+    if not bf_err[1] <= CASCADE_BOUND:
+        fail(f"ladder: beamformed features {bf_err[1]} from the plain "
+             f"weights' (bound {CASCADE_BOUND})")
+    if not w_err <= w_bound:
+        fail(f"ladder: weights on the trained SCMs {w_err} from complex128 "
+             f"(bound {w_bound})")
+
+    # 4. CSS over a LADDER_CSS_S scene (css_longform's functions)
+    n = int(LADDER_CSS_S * ds.fs)
+    scene = synth_mixture(20_000, n, 6, voiced=True)
+    css = StreamingCSS(model, stft_cfg, ds)
+    css.process(scene["mix"][: ds.chunk_samples])   # warm-up
+    for overlap in css_longform.passes(ds):
+        hop = ds.chunk_samples - overlap
+        blocks = max(1, -(-max(n - overlap, 1) // hop))
+        reset_launch_counts()
+        (row,) = css_longform.run_css(css, scene["mix"], scene["ref"],
+                                      LADDER_CSS_S, (overlap,))
+        counts = launch_counts()
+        want = expect("bfloat16", 50 * blocks, 10 * blocks,
+                      mvdr_weights=blocks)
+        print(json.dumps({"phase": "ladder", "stage": "css", **row,
+                          "blocks": blocks, "launches": counts,
+                          "device": device_line}), flush=True)
+        if counts != want:
+            fail(f"ladder CSS overlap {overlap}: launched {counts}, "
+                 f"expected {want}")
+        if not row["miso1"] > row["mixture"]:
+            fail(f"ladder CSS overlap {overlap}: MISO1 {row['miso1']} dB "
+                 f"not above the mixture's {row['mixture']} dB")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -2659,6 +2889,9 @@ def main() -> int:
 
     # 22. parallel/ over NCCL at world size 1
     timed("parallel", phase_parallel, device)
+
+    # 23. the example programs on a small voiced corpus: trained weights
+    timed("ladder", phase_ladder, device, smi)
     print(json.dumps({"phase": "timing", "seconds": seconds}), flush=True)
 
     # every time is the sum over that kernel's main-path cases in phase 3,
@@ -2680,5 +2913,33 @@ def main() -> int:
     return 0
 
 
+def trained_main(ckpt: str) -> int:
+    """``--trained <dir>/<tag>``: trained_decodes on a saved MISO1."""
+    from misonet_tpu_torch.config import ModelConfig, StftConfig
+    from misonet_tpu_torch.examples.common import make_corpus, score_separator
+    from misonet_tpu_torch.examples.train_cascade import restore_miso1
+    from misonet_tpu_torch.models import make_miso1
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    device, cfg, stft_cfg = torch.device("cuda", 0), ModelConfig(), StftConfig()
+    model = make_miso1(cfg, 6, device=device)
+    restore_miso1(model, ckpt)
+    evals = make_corpus(0, 8, 32000, 6, voiced=True).evals
+    base = score_separator(model, stft_cfg, evals)[0]
+    trained_decodes(model, cfg, stft_cfg, evals, base, device, smi)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--trained"]:
+        sys.exit(trained_main(sys.argv[2]))
     sys.exit(main())

@@ -28,18 +28,26 @@ def beamform_sources(miso1_full: torch.Tensor, mix: torch.Tensor,
                          power_iters=power_iters)
 
 
+def enhance_inputs(mix: torch.Tensor, miso1_ref: torch.Tensor,
+                   bf: torch.Tensor, joint: bool) -> torch.Tensor:
+    """The enhancement net's input from mix [B, C, T, F] and the [B, S, T,
+    F] estimates: MISO2's (``joint``) [B, C+2S, T, F], all speakers at
+    once (tester.py:940-947); MISO3's [B*S, C+2, T, F], every speaker in
+    the batch of one forward (tester.py:935-939)."""
+    if joint:
+        return enhance_input(mix, miso1_ref, bf)
+    b, s, t, f = bf.shape
+    return enhance_input(mix.repeat_interleave(s, dim=0),
+                         miso1_ref.reshape(b * s, 1, t, f),
+                         bf.reshape(b * s, 1, t, f))
+
+
 def enhance(enhance_model, mix: torch.Tensor, miso1_ref: torch.Tensor,
             bf: torch.Tensor, joint: bool) -> torch.Tensor:
     """MISO2 (``joint``) or MISO3 over [B, S, T, F] estimates -> enhanced
-    [B, S, T, F].  MISO3 runs every speaker in the batch of one forward
-    (tester.py:935-939); MISO2 takes all speakers at once (:940-947)."""
-    if joint:
-        return enhance_model(enhance_input(mix, miso1_ref, bf))
-    b, s, t, f = bf.shape
-    x = enhance_input(mix.repeat_interleave(s, dim=0),
-                      miso1_ref.reshape(b * s, 1, t, f),
-                      bf.reshape(b * s, 1, t, f))                # [B*S, C+2]
-    return enhance_model(x).reshape(b, s, t, f)
+    [B, S, T, F]."""
+    est = enhance_model(enhance_inputs(mix, miso1_ref, bf, joint))
+    return est if joint else est.reshape(bf.shape)
 
 
 def make_cascade(miso1_model, enhance_model, num_mics: int, ref_ch: int = 0,

@@ -43,10 +43,9 @@ from misonet_tpu_torch.config import (
     StftConfig,
     TrainerConfig,
 )
-from misonet_tpu_torch.inference.cascade import beamform_sources
+from misonet_tpu_torch.inference.cascade import beamform_sources, enhance_inputs
 from misonet_tpu_torch.inference.separate import align_slots, make_full_array_decode
 from misonet_tpu_torch.losses import loss_enhance, loss_upit, magnitude_distance
-from misonet_tpu_torch.models import enhance_input
 from misonet_tpu_torch.ops.stft import stft_scaled
 from misonet_tpu_torch.parallel.mesh import (
     Mesh,
@@ -83,6 +82,46 @@ def _scheduler(opt_cfg: OptimizerConfig, trainer_cfg: TrainerConfig):
         min_lr=opt_cfg.min_lr,
         early_stop_patience=trainer_cfg.early_stop_patience,
     )
+
+
+@torch.no_grad()
+def enhance_features(decode, stft_cfg: StftConfig, ref_ch: int, mix_wave,
+                     ref_wave, device, miso1_ref=None, bf=None):
+    """The frozen stages' features of a wave batch: mix_wave [B, S, C],
+    ref_wave [B, spks, S] -> (mix_stft [B, C, T, F], ref_stft aligned to
+    MISO1's speaker order, MISO1 at the reference mic, bf), each [B, spks,
+    T, F] but the first.  ``decode`` is the frozen MISO1's full-array
+    decode (``make_full_array_decode``); the MVDR takes every speaker of
+    the batch in one ``mvdr_beamform`` call.  This is the on-device
+    replacement for the reference's in-DataLoader model inference + NumPy
+    MVDR (data.py:148, :201-207).  With precomputed ``miso1_ref``/``bf``
+    (data/precompute.py; the reference's load_MISO1_Output /
+    load_MVDR_Output modes, data.py:133-145, :190-199) the decode and the
+    MVDR are skipped."""
+    mix_wave = torch.as_tensor(mix_wave).to(device)
+    ref_wave = torch.as_tensor(ref_wave).to(device)
+    mix = stft_scaled(mix_wave.transpose(1, 2), stft_cfg)
+    ref = stft_scaled(ref_wave, stft_cfg)                   # [B, S, T, F]
+    if miso1_ref is None:
+        full = decode(mix)                                  # [B, S, C, T, F]
+        bf = beamform_sources(full, mix, ref_ch)
+        miso1_ref = full[:, :, ref_ch].clone()
+    else:
+        miso1_ref = torch.as_tensor(miso1_ref).to(device)
+        bf = torch.as_tensor(bf).to(device)
+    # align references to MISO1 speaker order (data.py:154-182)
+    idx = align_slots(magnitude_distance(miso1_ref, ref))
+    ref_aligned = torch.take_along_dim(ref, idx[..., None, None], dim=1)
+    return mix, ref_aligned, miso1_ref, bf
+
+
+def enhance_batch(mix, ref_aligned, miso1_ref, bf, joint: bool):
+    """(input, target) of an enhancement step from the features: MISO2's
+    (``joint``) over all speakers at once, MISO3's with the speakers folded
+    into the batch (targets [B*S, 1, T, F])."""
+    b, s, t, f = miso1_ref.shape
+    y = ref_aligned if joint else ref_aligned.reshape(b * s, 1, t, f)
+    return enhance_inputs(mix, miso1_ref, bf, joint), y
 
 
 class _Trainer:
@@ -295,41 +334,11 @@ class EnhanceTrainer(_Trainer):
             mean_over([loss], self.mesh)
         return loss, est
 
-    @torch.no_grad()
     def feature_step(self, mix_wave, ref_wave, miso1_ref=None, bf=None):
-        """Frozen-stage features: wave batch -> (mix_stft, ref_stft aligned
-        to MISO1's speaker order, miso1 at the reference mic, bf), the
-        on-device replacement for the reference's in-DataLoader model
-        inference + NumPy MVDR (data.py:148, :201-207).  With precomputed
-        ``miso1_ref``/``bf`` (data/precompute.py; the reference's
-        load_MISO1_Output / load_MVDR_Output modes, data.py:133-145,
-        :190-199) the decode and the MVDR are skipped."""
-        mix_wave = torch.as_tensor(mix_wave).to(self.device)
-        ref_wave = torch.as_tensor(ref_wave).to(self.device)
-        mix = stft_scaled(mix_wave.transpose(1, 2), self.stft_cfg)
-        ref = stft_scaled(ref_wave, self.stft_cfg)          # [B, S, T, F]
-        if miso1_ref is None:
-            full = self.decode(mix)                         # [B, S, C, T, F]
-            bf = beamform_sources(full, mix, self.ds_cfg.ref_ch)
-            miso1_ref = full[:, :, self.ds_cfg.ref_ch].clone()
-        else:
-            miso1_ref = torch.as_tensor(miso1_ref).to(self.device)
-            bf = torch.as_tensor(bf).to(self.device)
-        # align references to MISO1 speaker order (data.py:154-182)
-        idx = align_slots(magnitude_distance(miso1_ref, ref))
-        ref_aligned = torch.take_along_dim(ref, idx[..., None, None], dim=1)
-        return mix, ref_aligned, miso1_ref, bf
-
-    def _build_inputs(self, mix, ref_aligned, miso1_ref, bf):
-        b, s, t, f = miso1_ref.shape
-        if self.joint:
-            return enhance_input(mix, miso1_ref, bf), ref_aligned
-        x = enhance_input(
-            mix.repeat_interleave(s, dim=0),
-            miso1_ref.reshape(b * s, 1, t, f),
-            bf.reshape(b * s, 1, t, f),
-        )
-        return x, ref_aligned.reshape(b * s, 1, t, f)
+        """The frozen stages' features of a wave batch
+        (:func:`enhance_features`)."""
+        return enhance_features(self.decode, self.stft_cfg, self.ds_cfg.ref_ch,
+                                mix_wave, ref_wave, self.device, miso1_ref, bf)
 
     def _features(self, batch):
         if "miso1" in batch:
@@ -344,7 +353,7 @@ class EnhanceTrainer(_Trainer):
             n_glob, n_samp = batch["mix"].shape[:2]
             batch = self._rows(batch)
             feats = self._features(batch)
-            x, y = self._build_inputs(*feats)
+            x, y = enhance_batch(*feats, joint=self.joint)
             if training:
                 if self.writer:
                     self.writer.step_start()

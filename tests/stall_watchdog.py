@@ -14,6 +14,16 @@ worker runs one.  A daemon thread polls ``PYTEST_CURRENT_TEST`` every
   between tests or for work is never killed.
 
 A stall outside every test (the xdist controller, collection) is not seen.
+
+``synchronous_cpu_dispatch()`` is meant to remove the one stall caught so
+far (unproven: the stall is intermittent, and if it comes back this
+mitigation goes, ROADMAP section 3 item 1): a whole
+run stopped in tests/test_stencil_bwd.py::test_final_bwd_matches_twin, where
+an interpret-mode Pallas call's ``store`` callback iterated a ``jax.Array``
+(dispatching slices from the callback's thread) while the main thread
+dispatched the next eager primitive of ``jax.grad``, and neither returned
+(JAX 0.9.0; the stacks in the dump).  With CPU computations run inline the
+main thread waits while a computation and its callbacks run.
 The limit sits 2.7 times above the slowest test of a whole run (177 s
 under ``-n 6``, setup included) and well inside the run's own limit
 (1,470 s).  A process that ends normally removes its dump file if it is
@@ -57,6 +67,24 @@ def _drop_if_empty(dump) -> None:
     dump.close()
     if os.path.getsize(dump.name) == 0:
         os.remove(dump.name)
+
+
+def synchronous_cpu_dispatch() -> bool:
+    """Turn off JAX's asynchronous CPU dispatch (``jax_cpu_enable_async_
+    dispatch``), which JAX reads when its CPU backend starts; False if the
+    backend had already started (then it stays asynchronous), or if this
+    JAX lacks the option or the private ``xla_bridge._backends`` that says
+    whether it started (then test_cpu_dispatch_is_synchronous fails, and
+    collection goes on)."""
+    import jax
+
+    try:
+        jax.config.update("jax_cpu_enable_async_dispatch", False)
+        from jax._src import xla_bridge
+    except (AttributeError, ImportError):
+        return False
+    backends = getattr(xla_bridge, "_backends", None)
+    return backends is not None and not backends
 
 
 def start(limit: float = STALL_LIMIT_S, poll: float = POLL_S) -> bool:

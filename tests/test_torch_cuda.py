@@ -1122,3 +1122,125 @@ def test_dp_step_at_world_size_one_is_the_plain_step(cuda, tmp_path):
     assert loss_s == loss_dp
     for p, q in zip(single.parameters(), dp.parameters()):
         assert torch.equal(p, q) and torch.equal(p.grad, q.grad)
+
+
+# the example programs' functions (misonet_tpu_torch/examples) on the card
+# at the narrow 7-level bf16 plan over 6 mics and 4,000-sample (63-frame)
+# voiced utterances, with chip_smoke.py phase 23's launch counts
+NARROW = ModelConfig(en_channels=(8, 8, 8, 8, 8, 16, 16),
+                     de_channels=(16, 16, 8, 8, 8, 8, 8), tcn_repeats=1,
+                     tcn_blocks=2, tcn_channels=16)
+
+
+@pytest.fixture(scope="module")
+def ladder_corpus():
+    from misonet_tpu_torch.examples.common import make_corpus
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return make_corpus(8, 2, 4000, 6, voiced=True, device="cuda")
+
+
+@pytest.mark.cuda
+def test_train_separator_on_the_card(cuda, ladder_corpus):
+    """train_synthetic's loop: 50 / 10 / 60 bf16 launches a step, the CUDA
+    events' time, finite losses; its scorer 50 / 10 a held-out
+    utterance."""
+    from misonet_tpu_torch.config import StftConfig
+    from misonet_tpu_torch.examples.common import (
+        score_separator, train_separator)
+    from misonet_tpu_torch.examples.train_synthetic import build_miso1
+
+    model = build_miso1(NARROW, 6, cuda)
+    reset_launch_counts()
+    _, log = train_separator(model, StftConfig(), ladder_corpus, 3, 2,
+                             every=1)
+    assert launch_counts() == _counts(dense_stack_bf16=150, stencil_bf16=30,
+                                      stencil_bwd_bf16=180)
+    assert [it for it, _, _ in log.points] == [0, 1, 2]
+    assert all(np.isfinite(loss) for _, loss, _ in log.points)
+    assert log.event_ms is not None and log.step_ms > 0
+    reset_launch_counts()
+    base, sep = score_separator(model, StftConfig(), ladder_corpus.evals)
+    assert launch_counts() == _counts(dense_stack_bf16=100, stencil_bf16=20)
+    assert np.isfinite(base) and np.isfinite(sep)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("joint", [False, True], ids=["miso3", "miso2"])
+def test_train_enhancer_on_the_card(cuda, ladder_corpus, joint):
+    """train_cascade's stage 3: a step decodes the batch's 6 shifts in one
+    forward (50 / 10), takes every speaker's MVDR weights in one launch
+    and trains the enhancement net (50 / 10 / 60); eval_stages scores
+    every stage."""
+    from misonet_tpu_torch.config import StftConfig
+    from misonet_tpu_torch.examples import train_cascade
+
+    miso1, enh = train_cascade.build_models(NARROW, cuda, joint)
+    stage2 = train_cascade.Stage2(miso1, StftConfig(), joint)
+    reset_launch_counts()
+    _, log = train_cascade.train_enhancer(enh, stage2, ladder_corpus, 2, 2,
+                                          every=1)
+    assert launch_counts() == _counts(dense_stack_bf16=200, stencil_bf16=40,
+                                      stencil_bwd_bf16=120, mvdr_weights=2)
+    assert all(np.isfinite(loss) for _, loss, _ in log.points)
+    scores = train_cascade.eval_stages(enh, stage2, ladder_corpus.evals)
+    assert list(scores) == ["mixture", "miso1", "mvdr",
+                            "miso2" if joint else "miso3"]
+    assert all(np.isfinite(v) for v in scores.values())
+
+
+@pytest.mark.cuda
+def test_demo_checkpoint_round_trip_and_int8_decode(cuda, ladder_corpus,
+                                                    tmp_path):
+    """train_synthetic's "demo" state saved and restored by eval_int8:
+    the parameters bit for bit; the bf16 decode 50 / 10 and the int8
+    decode 50 int8 / 10 bf16 launches a held-out utterance."""
+    from misonet_tpu_torch.config import StftConfig
+    from misonet_tpu_torch.examples import eval_int8
+    from misonet_tpu_torch.examples.common import DEMO_TAG, train_separator
+    from misonet_tpu_torch.examples.train_synthetic import build_miso1
+    from misonet_tpu_torch.utils.checkpoint import save_checkpoint
+
+    model = build_miso1(NARROW, 6, cuda)
+    state, _ = train_separator(model, StftConfig(), ladder_corpus, 2, 2)
+    save_checkpoint(tmp_path, DEMO_TAG, state, {"si_sdr": 0.5})
+    m16, m8, meta = eval_int8.restore(str(tmp_path), NARROW, 6, cuda)
+    assert meta == {"si_sdr": 0.5}
+    for m in (m16, m8):
+        saved, got = model.state_dict(), m.state_dict()
+        assert saved.keys() == got.keys()
+        assert all(torch.equal(saved[k], got[k]) for k in saved)
+    reset_launch_counts()
+    r = eval_int8.evaluate(m16, m8, StftConfig(), ladder_corpus.evals)
+    assert launch_counts() == _counts(dense_stack_bf16=100, stencil_bf16=40,
+                                      dense_stack_int8=100)
+    assert all(np.isfinite(v) for v in r.values())
+    assert r["cost"] == r["bf16"] - r["int8"]
+
+
+@pytest.mark.cuda
+def test_css_longform_on_the_card(cuda):
+    """css_longform's passes over a 3-block voiced scene: 50 / 10 bf16 and
+    1 mvdr_weights launches a block, finite scores."""
+    from misonet_tpu_torch.config import DatasetConfig, StftConfig
+    from misonet_tpu_torch.data.synthetic import synth_mixture
+    from misonet_tpu_torch.examples import css_longform
+    from misonet_tpu_torch.inference.css import StreamingCSS
+
+    ds = DatasetConfig(chunk_time=0.5)          # 4,000-sample blocks
+    n = 3 * ds.chunk_samples
+    scene = synth_mixture(20_000, n, 6, voiced=True)
+    model = make_miso1(NARROW, device=cuda,
+                       generator=torch.Generator().manual_seed(0))
+    css = StreamingCSS(model, StftConfig(), ds)
+    for overlap in css_longform.passes(ds):
+        hop = ds.chunk_samples - overlap
+        blocks = -(-(n - overlap) // hop)
+        reset_launch_counts()
+        (row,) = css_longform.run_css(css, scene["mix"], scene["ref"],
+                                      n / ds.fs, (overlap,))
+        assert launch_counts() == _counts(dense_stack_bf16=50 * blocks,
+                                          stencil_bf16=10 * blocks,
+                                          mvdr_weights=blocks)
+        assert all(np.isfinite(row[k]) for k in ("mixture", "miso1", "mvdr"))

@@ -1,10 +1,12 @@
 """The stall watchdog of the test processes (tests/stall_watchdog.py).
 
 Importing this file starts the watchdog in the process that imports it, and
-every pytest-xdist worker imports every test file at collection, so every
+turns off JAX's asynchronous CPU dispatch there (the one stall caught so
+far, stall_watchdog.py says which); every pytest-xdist worker imports every
+test file at collection, before any test starts the JAX backend, so every
 worker of a whole run is armed; a run that selects files or tests without
-this one runs unwatched.  Its tests run pytest subprocesses over generated
-test files at a 3 s limit.
+this one runs unwatched and dispatches asynchronously.  Its tests run
+pytest subprocesses over generated test files at a 3 s limit.
 """
 
 import os
@@ -14,6 +16,7 @@ from pathlib import Path
 
 import stall_watchdog
 
+SYNCHRONOUS = stall_watchdog.synchronous_cpu_dispatch()
 stall_watchdog.start(stall_watchdog.STALL_LIMIT_S)
 
 TESTS = Path(__file__).resolve().parent
@@ -66,3 +69,16 @@ def test_current_test_drops_the_phase():
     assert stall_watchdog.current_test(
         "tests/a.py::test_b[x (y)] (call)") == "tests/a.py::test_b[x (y)]"
     assert stall_watchdog.current_test(None) is None
+
+
+def test_cpu_dispatch_is_synchronous():
+    """JAX's CPU client of this process runs computations inline: the
+    option was set before the backend started (at collection), and a
+    computation's result is ready when the call returns."""
+    import jax
+    import jax.numpy as jnp
+
+    assert SYNCHRONOUS
+    assert jax.config.read("jax_cpu_enable_async_dispatch") is False
+    y = jnp.arange(4.0) * 2
+    assert y.is_ready() and float(y.sum()) == 12.0

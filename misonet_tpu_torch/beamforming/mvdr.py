@@ -35,12 +35,13 @@ from misonet_tpu_torch.ops.kernels.hermitian_solve import hermitian_solve
 from misonet_tpu_torch.ops.kernels.mvdr_weights import (
     mvdr_weights as fused_weights,
 )
+from misonet_tpu_torch.utils import profiling
 
 
 def frame_outer_sum(x: torch.Tensor) -> torch.Tensor:
     """sum_t x[..., c, t, f] conj(x[..., d, t, f]) -> [..., F, C, C],
     accumulated in complex128 and returned in ``x``'s dtype."""
-    with torch.profiler.record_function("mvdr.scm"):
+    with profiling.span("mvdr.scm"):
         x2 = x.to(torch.complex128)
         s = torch.einsum("...ctf,...dtf->...fcd", x2, x2.conj())
         return s.to(x.dtype)
@@ -78,7 +79,7 @@ def principal_eigenvector(r: torch.Tensor,
     convergence measurements).  The global phase is arbitrary: the caller
     normalizes by the reference-mic component."""
     m = r.shape[-1]
-    with torch.profiler.record_function("mvdr.power_iteration"):
+    with profiling.span("mvdr.power_iteration"):
         v = r.sum(-1)
         norm = _norm(v)
         v = torch.where(norm > 0, v / torch.clamp(norm, min=1e-30),
@@ -136,7 +137,7 @@ def steering_weights(source_scm: torch.Tensor, noise_scm: torch.Tensor,
     principal_eigenvector -> normalize_steering -> phase_correct ->
     mvdr_weights, as one ``mvdr_weights`` kernel launch on the card (the
     same four functions on the CPU)."""
-    with torch.profiler.record_function("mvdr.weights"):
+    with profiling.span("mvdr.weights"):
         return fused_weights(source_scm.contiguous(), noise_scm.contiguous(),
                              ref_ch, diag_load, power_iters)
 

@@ -15,6 +15,7 @@ import torch
 from misonet_tpu_torch.beamforming.mvdr import mvdr_beamform
 from misonet_tpu_torch.inference.separate import make_full_array_decode
 from misonet_tpu_torch.models import enhance_input
+from misonet_tpu_torch.utils import profiling
 
 
 def beamform_sources(miso1_full: torch.Tensor, mix: torch.Tensor,
@@ -46,8 +47,9 @@ def enhance(enhance_model, mix: torch.Tensor, miso1_ref: torch.Tensor,
             bf: torch.Tensor, joint: bool) -> torch.Tensor:
     """MISO2 (``joint``) or MISO3 over [B, S, T, F] estimates -> enhanced
     [B, S, T, F]."""
-    est = enhance_model(enhance_inputs(mix, miso1_ref, bf, joint))
-    return est if joint else est.reshape(bf.shape)
+    with profiling.span("enhance"):
+        est = enhance_model(enhance_inputs(mix, miso1_ref, bf, joint))
+        return est if joint else est.reshape(bf.shape)
 
 
 def make_cascade(miso1_model, enhance_model, num_mics: int, ref_ch: int = 0,

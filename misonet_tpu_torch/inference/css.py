@@ -28,6 +28,7 @@ from misonet_tpu_torch.config import DatasetConfig, StftConfig
 from misonet_tpu_torch.inference.separate import align_slots, make_full_array_decode
 from misonet_tpu_torch.ops.chunk import split_chunks
 from misonet_tpu_torch.ops.stft import istft_scaled, stft_scaled
+from misonet_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -75,39 +76,43 @@ class StreamingCSS:
         ref_ch = self.ds.ref_ch
         mix = stft_scaled(block_wave.T, self.stft_cfg)       # [C, T, F]
         full = self.decode(mix[None])[0]                     # [S, C, T, F]
-        mag = full[:, ref_ch].abs()
+        with profiling.span("css.update"):
+            mag = full[:, ref_ch].abs()
 
-        # chain the speaker order to the previous block (none before the
-        # first block: then the identity)
-        d = (state.prev_mag[:, None] - mag[None, :]).abs().sum(dim=(-2, -1))
-        idx = torch.where(state.frames > 0, align_slots(d[None])[0],
-                          torch.arange(mag.shape[0], device=mag.device))
-        full = full[idx]
-        m_ref = full[:, ref_ch]
-        mag = m_ref.abs()
+            # chain the speaker order to the previous block (none before
+            # the first block: then the identity)
+            d = (state.prev_mag[:, None] - mag[None, :]).abs().sum(
+                dim=(-2, -1))
+            idx = torch.where(state.frames > 0, align_slots(d[None])[0],
+                              torch.arange(mag.shape[0], device=mag.device))
+            full = full[idx]
+            m_ref = full[:, ref_ch]
+            mag = m_ref.abs()
 
-        t = full.shape[-2]
-        source_scm = self.forget * state.source_scm + frame_outer_sum(full)
-        noise_scm = (self.forget * state.noise_scm
-                     + frame_outer_sum(mix[None] - full))
-        frames = self.forget * state.frames + t
-        r_s = hermitize(source_scm) / frames
-        r_n = hermitize(noise_scm) / frames
+            t = full.shape[-2]
+            source_scm = self.forget * state.source_scm + frame_outer_sum(full)
+            noise_scm = (self.forget * state.noise_scm
+                         + frame_outer_sum(mix[None] - full))
+            frames = self.forget * state.frames + t
+            r_s = hermitize(source_scm) / frames
+            r_n = hermitize(noise_scm) / frames
 
-        bf = apply_weights(steering_weights(r_s, r_n, ref_ch), mix)  # [S,T,F]
+            bf = apply_weights(steering_weights(r_s, r_n, ref_ch), mix)
         return CSSState(source_scm, noise_scm, frames, mag), bf, m_ref
 
     def process_block(self, state: CSSState, block_wave: np.ndarray):
         """One block [samples, C]: returns (state, beamformed wave
         [S, samples], MISO1 wave [S, samples])."""
-        x = torch.from_numpy(np.ascontiguousarray(block_wave, np.float32))
-        state, bf, m1 = self.step(state, x.to(self.device))
-        n = block_wave.shape[0]
-        return (
-            state,
-            istft_scaled(bf, self.stft_cfg, n).cpu().numpy(),
-            istft_scaled(m1, self.stft_cfg, n).cpu().numpy(),
-        )
+        with profiling.span("serve.block"):
+            x = np.ascontiguousarray(block_wave, np.float32)
+            state, bf, m1 = self.step(
+                state, profiling.to_device(x, self.device))
+            n = block_wave.shape[0]
+            return (
+                state,
+                profiling.readback(istft_scaled(bf, self.stft_cfg, n)).numpy(),
+                profiling.readback(istft_scaled(m1, self.stft_cfg, n)).numpy(),
+            )
 
     def process(self, wave: np.ndarray, overlap: int = 0):
         """A whole recording [samples, C] -> dict with the stitched

@@ -49,6 +49,7 @@ from misonet_tpu_torch.ops.stft import (
     mask_frames,
     stft_scaled,
 )
+from misonet_tpu_torch.utils import profiling
 
 
 def _next_bucket(n: int) -> int:
@@ -115,13 +116,17 @@ class CascadeEvaluator:
     def _to_device(self, pieces: np.ndarray) -> torch.Tensor:
         """[Nb, chunk, C] host chunks -> [Nb, C, chunk] float32 on the
         device."""
-        x = torch.from_numpy(np.ascontiguousarray(pieces.transpose(0, 2, 1)))
-        return x.to(self.device, torch.float32)
+        x = np.ascontiguousarray(pieces.transpose(0, 2, 1))
+        return profiling.to_device(x, self.device, torch.float32)
 
     @torch.inference_mode()
     def process(self, mix_wave: np.ndarray,
                 refs: np.ndarray | None = None) -> UtteranceResult:
         """mix_wave: [samples, C] float32; refs: [S, samples] or None."""
+        with profiling.span("serve.request"):
+            return self._process(mix_wave, refs)
+
+    def _process(self, mix_wave, refs):
         chunk = self.ds.chunk_samples
         pieces, gap = split_chunks(mix_wave, chunk)       # [N, chunk, C]
         n = pieces.shape[0]
@@ -158,7 +163,7 @@ class CascadeEvaluator:
             else:
                 bf_wave, enhanced_stft = self._enh_utt(
                     bf, miso1_ref, mix, t_valid, out_len)
-                beamformed = bf_wave[:, :out_len].cpu().numpy()
+                beamformed = profiling.readback(bf_wave[:, :out_len]).numpy()
                 enhanced = self._stitch(enhanced_stft, n, gap, out_len)
 
         scores: dict[str, float] = {}
@@ -174,7 +179,7 @@ class CascadeEvaluator:
         """[N(,bucketed), S, T, F] chunk spectrograms -> [S, out_len] wave."""
         chunk = self.ds.chunk_samples
         wav = istft_scaled(spec[:n], self.stft_cfg, chunk)  # [N, S, chunk]
-        wav = wav.cpu().numpy().transpose(1, 0, 2)          # [S, N, chunk]
+        wav = profiling.readback(wav).numpy().transpose(1, 0, 2)  # [S,N,chunk]
         return np.stack(
             [merge_chunks(w[:, :, None], gap)[:, 0] for w in wav]
         )[:, :out_len]
@@ -188,7 +193,7 @@ class CascadeEvaluator:
         chunk = self.ds.chunk_samples
         bucket = _next_bucket(max(1, -(-out_len // chunk))) * chunk
         wav = istft_scaled_masked(spec, t_valid, self.stft_cfg, bucket)
-        return wav[..., :out_len].cpu().numpy()
+        return profiling.readback(wav[..., :out_len]).numpy()
 
     def _bf_utt(self, full, pieces_t, t_valid: int, out_len: int):
         """Utterance-mode MVDR: per-chunk iSTFT -> stitch (a reshape of the

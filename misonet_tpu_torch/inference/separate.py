@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from misonet_tpu_torch.losses import _perm_one_hot
+from misonet_tpu_torch.utils import profiling
 
 
 def align_slots(dist: torch.Tensor) -> torch.Tensor:
@@ -18,6 +19,7 @@ def align_slots(dist: torch.Tensor) -> torch.Tensor:
     candidate] -> int64 [..., S], the candidate chosen for each slot under
     the best global permutation (tester.py:137-147)."""
     s = dist.shape[-1]
+    profiling.host_copy(dist.device)
     one_hot = torch.as_tensor(_perm_one_hot(s), device=dist.device,
                               dtype=dist.dtype)              # [S!, S, S]
     per_perm = torch.einsum("...ij,pij->...p", dist, one_hot)
@@ -40,19 +42,21 @@ def make_full_array_decode(model, num_mics: int, ref_ch: int = 0):
         b, m, t, f = mix.shape
         if m != num_mics:
             raise ValueError(f"expected {num_mics} mics, got {m}")
-        # run `sh` puts mic `sh` first and estimates the images at mic `sh`
-        shifts = torch.stack(
-            [torch.roll(mix, -sh, dims=1) for sh in range(num_mics)]
-        )                                                     # [M, B, C, T, F]
-        est = model(shifts.reshape(num_mics * b, m, t, f))
-        s = est.shape[1]
-        est = est.reshape(num_mics, b, s, t, f)              # [M, B, S, T, F]
-        mag = magnitude(est)
-        dist = (mag[ref_ch][None, :, :, None] - mag[:, :, None]).abs().sum(
-            dim=(-2, -1)
-        )                                                     # [M, B, S, S]
-        idx = align_slots(dist)                               # [M, B, S]
-        aligned = torch.take_along_dim(est, idx[..., None, None], dim=2)
-        return aligned.permute(1, 2, 0, 3, 4)                 # [B, S, M, T, F]
+        with profiling.span("miso1.decode"):
+            # run `sh` puts mic `sh` first and estimates the images at mic
+            # `sh`
+            shifts = torch.stack(
+                [torch.roll(mix, -sh, dims=1) for sh in range(num_mics)]
+            )                                                 # [M, B, C, T, F]
+            est = model(shifts.reshape(num_mics * b, m, t, f))
+            s = est.shape[1]
+            est = est.reshape(num_mics, b, s, t, f)          # [M, B, S, T, F]
+            mag = magnitude(est)
+            dist = (mag[ref_ch][None, :, :, None] - mag[:, :, None]).abs().sum(
+                dim=(-2, -1)
+            )                                                 # [M, B, S, S]
+            idx = align_slots(dist)                           # [M, B, S]
+            aligned = torch.take_along_dim(est, idx[..., None, None], dim=2)
+            return aligned.permute(1, 2, 0, 3, 4)             # [B, S, M, T, F]
 
     return decode

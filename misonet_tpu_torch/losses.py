@@ -15,6 +15,8 @@ import itertools
 import numpy as np
 import torch
 
+from misonet_tpu_torch.utils import profiling
+
 EPS = 1e-8  # reference criterion.py:6
 
 
@@ -28,6 +30,7 @@ def _perm_one_hot(num_spks: int) -> np.ndarray:
 
 
 def _one_hot(num_spks: int, device) -> torch.Tensor:
+    profiling.host_copy(device)
     return torch.as_tensor(_perm_one_hot(num_spks), device=device)
 
 

@@ -13,7 +13,7 @@ the first ``t_valid`` frames of a bucket-padded spectrogram, and
 ``mask_frames`` zeroes the frames past them.  ``stft`` / ``istft`` are the
 scipy-scaled variants.  All functions batch over leading axes and run on
 the tensor's device; the FFT is ``torch.fft`` (JAX left it to XLA).  The
-transforms are ``torch.profiler`` ranges named "stft" and "istft"."""
+transforms are spans named "stft" and "istft" (``utils/profiling.py``)."""
 
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from misonet_tpu_torch.config import StftConfig
+from misonet_tpu_torch.utils import profiling
 
 
 def hann_periodic(length: int) -> np.ndarray:
@@ -31,6 +32,7 @@ def hann_periodic(length: int) -> np.ndarray:
 
 
 def _window(length: int, device) -> torch.Tensor:
+    profiling.host_copy(device)
     return torch.as_tensor(hann_periodic(length), dtype=torch.float32,
                            device=device)
 
@@ -56,7 +58,7 @@ def _stft_raw(x: torch.Tensor, length: int, hop: int) -> torch.Tensor:
     half = length // 2
     padded = x.shape[-1] + 2 * half
     extra = (-(padded - length)) % hop
-    with torch.profiler.record_function("stft"):
+    with profiling.span("stft"):
         xp = F.pad(x.to(torch.float32), (half, half + extra))
         frames = xp.unfold(-1, length, hop) * _window(length, x.device)
         return torch.fft.rfft(frames, dim=-1).to(torch.complex64)
@@ -72,7 +74,7 @@ def _istft_raw(z: torch.Tensor, length: int, hop: int, out_samples: int,
     win = hann_periodic(length)
     num_frames = z.shape[-2]
     used = num_frames if t_valid is None else min(int(t_valid), num_frames)
-    with torch.profiler.record_function("istft"):
+    with profiling.span("istft"):
         xsubs = torch.fft.irfft(z, n=length, dim=-1).to(torch.float32)
         xsubs = xsubs * _window(length, z.device)
         if used < num_frames:
@@ -86,6 +88,7 @@ def _istft_raw(z: torch.Tensor, length: int, hop: int, out_samples: int,
             norm[p : p + used] += w2
         norm = norm.reshape(-1)
         norm = np.where(norm > 1e-10, norm, 1.0)
+        profiling.host_copy(z.device)
         y = num / torch.as_tensor(norm, dtype=torch.float32, device=z.device)
         y = y[..., length // 2 :]
         if y.shape[-1] >= out_samples:

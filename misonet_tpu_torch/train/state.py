@@ -31,6 +31,7 @@ import torch
 import torch.nn as nn
 
 from misonet_tpu_torch.config import OptimizerConfig
+from misonet_tpu_torch.utils import profiling
 
 
 class OptaxRMSprop(torch.optim.Optimizer):
@@ -81,20 +82,29 @@ class Optimizer:
     def update(self) -> torch.Tensor:
         """Apply one update from the parameters' ``.grad`` in place.
         Returns the global norm of the raw gradients (before clipping)."""
-        grads = [p.grad for p in self.params if p.grad is not None]
-        norm = global_norm(grads)
-        if self.guard_nans:
-            finite = bool(torch.stack(
-                [torch.isfinite(g).all() for g in grads]).all())
-            self.nan_steps = 0 if finite else self.nan_steps + 1
-            if not finite and self.nan_steps <= self.max_consecutive_nan_steps:
-                return norm
-        if self.max_norm is not None and norm >= self.max_norm:
-            with torch.no_grad():
-                for g in grads:
-                    g.div_(norm).mul_(self.max_norm)
-        self.inner.step()
-        return norm
+        with profiling.span("train.optimizer"):
+            grads = [p.grad for p in self.params if p.grad is not None]
+            norm = global_norm(grads)
+            if self.guard_nans:
+                finite = _host_bool(torch.stack(
+                    [torch.isfinite(g).all() for g in grads]).all())
+                self.nan_steps = 0 if finite else self.nan_steps + 1
+                if (not finite
+                        and self.nan_steps <= self.max_consecutive_nan_steps):
+                    return norm
+            if self.max_norm is not None and _host_bool(norm >= self.max_norm):
+                with torch.no_grad():
+                    for g in grads:
+                        g.div_(norm).mul_(self.max_norm)
+            self.inner.step()
+            return norm
+
+
+def _host_bool(x: torch.Tensor) -> bool:
+    """``bool(x)``, counted as a ``sync`` where ``x`` is on a card."""
+    if x.is_cuda:
+        profiling.count("sync")
+    return bool(x)
 
 
 def make_optimizer(cfg: OptimizerConfig, params) -> Optimizer:

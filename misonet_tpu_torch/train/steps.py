@@ -27,6 +27,7 @@ estimates of this rank's rows.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
@@ -37,6 +38,7 @@ from misonet_tpu_torch.losses import loss_enhance, loss_upit, loss_upit_overest
 from misonet_tpu_torch.ops.stft import stft_scaled
 from misonet_tpu_torch.parallel.mesh import Mesh, mean_over
 from misonet_tpu_torch.train.state import Optimizer, TrainState
+from misonet_tpu_torch.utils import profiling
 
 
 def _device(model: nn.Module) -> torch.device:
@@ -45,7 +47,20 @@ def _device(model: nn.Module) -> torch.device:
 
 def _on(model: nn.Module, *tensors):
     dev = _device(model)
-    return [torch.as_tensor(t).to(dev) for t in tensors]
+    return [profiling.to_device(t, dev) for t in tensors]
+
+
+def _traced(step: Callable) -> Callable:
+    """A train step in the span ``train.step``, the outermost of a step:
+    the data copy (``h2d``), ``train.forward``, ``train.backward`` and
+    ``train.optimizer`` lie inside it."""
+
+    @functools.wraps(step)
+    def traced(*args, **kwargs):
+        with profiling.span("train.step"):
+            return step(*args, **kwargs)
+
+    return traced
 
 
 def _check_state(state: TrainState, model, optimizer) -> None:
@@ -66,8 +81,10 @@ def _update(state: TrainState, model: nn.Module, optimizer: Optimizer,
             loss_fn: Callable[[], torch.Tensor], mesh: Mesh | None):
     _check_state(state, model, optimizer)
     model.zero_grad(set_to_none=True)
-    loss = loss_fn()
-    loss.backward()
+    with profiling.span("train.forward"):
+        loss = loss_fn()
+    with profiling.span("train.backward"):
+        loss.backward()
     if mesh is not None:   # the same parameters have gradients on every rank
         mean_over([p.grad for p in optimizer.params if p.grad is not None],
                   mesh)
@@ -94,6 +111,7 @@ def make_separate_train_step(model: nn.Module, optimizer: Optimizer,
     Rolls the mic axis so the reference channel is first (trainer.py:155),
     runs the forward, and minimizes the uPIT loss (trainer.py:159-173)."""
 
+    @_traced
     def step(state: TrainState, mix, ref):
         mix, ref = _on(model, mix, ref)
         mix = torch.roll(mix, -ref_ch, dims=1)
@@ -132,6 +150,7 @@ def make_separate_wave_train_step(model: nn.Module, optimizer: Optimizer,
     loss_uPIT_v1, criterion.py:65-119) and the step takes ``alpha``:
     (state, mix_wave, ref_wave, alpha)."""
 
+    @_traced
     def step(state: TrainState, mix_wave, ref_wave, alpha=None):
         if overest and alpha is None:
             raise ValueError("an overest step needs alpha")
@@ -172,6 +191,7 @@ def make_enhance_train_step(model: nn.Module, optimizer: Optimizer,
     (state, x [B,C+2,T,F] c64, ref [B,1,T,F] c64) -> (state, metrics),
     where the caller builds x with models.enhance_input per speaker."""
 
+    @_traced
     def step(state: TrainState, x, ref):
         x, ref = _on(model, x, ref)
         return _update(state, model, optimizer,
@@ -187,6 +207,7 @@ def make_enhance_joint_train_step(model: nn.Module, optimizer: Optimizer,
 
     (state, x [B,C+2S,T,F] c64, ref [B,S,T,F] c64) -> (state, metrics)."""
 
+    @_traced
     def step(state: TrainState, x, ref):
         x, ref = _on(model, x, ref)
         return _update(state, model, optimizer,

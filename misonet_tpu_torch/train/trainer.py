@@ -65,6 +65,7 @@ from misonet_tpu_torch.train.steps import (
     make_separate_wave_eval_step,
     make_separate_wave_train_step,
 )
+from misonet_tpu_torch.utils import profiling
 from misonet_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
 
@@ -98,8 +99,8 @@ def enhance_features(decode, stft_cfg: StftConfig, ref_ch: int, mix_wave,
     (data/precompute.py; the reference's load_MISO1_Output /
     load_MVDR_Output modes, data.py:133-145, :190-199) the decode and the
     MVDR are skipped."""
-    mix_wave = torch.as_tensor(mix_wave).to(device)
-    ref_wave = torch.as_tensor(ref_wave).to(device)
+    mix_wave = profiling.to_device(mix_wave, device)
+    ref_wave = profiling.to_device(ref_wave, device)
     mix = stft_scaled(mix_wave.transpose(1, 2), stft_cfg)
     ref = stft_scaled(ref_wave, stft_cfg)                   # [B, S, T, F]
     if miso1_ref is None:
@@ -107,8 +108,8 @@ def enhance_features(decode, stft_cfg: StftConfig, ref_ch: int, mix_wave,
         bf = beamform_sources(full, mix, ref_ch)
         miso1_ref = full[:, :, ref_ch].clone()
     else:
-        miso1_ref = torch.as_tensor(miso1_ref).to(device)
-        bf = torch.as_tensor(bf).to(device)
+        miso1_ref = profiling.to_device(miso1_ref, device)
+        bf = profiling.to_device(bf, device)
     # align references to MISO1 speaker order (data.py:154-182)
     idx = align_slots(magnitude_distance(miso1_ref, ref))
     ref_aligned = torch.take_along_dim(ref, idx[..., None, None], dim=1)

@@ -90,6 +90,7 @@
 
 #include "conv_common.cuh"
 #include "conv_mma.cuh"
+#include "smem_limit.cuh"
 
 namespace misonet {
 namespace {
@@ -212,9 +213,8 @@ cudaError_t launch_dense_tc(const Sources<E>& src, int C,
   constexpr int MT = kMt<E>;
   const size_t smem =
       tc::gather_smem<tc::Geo<tc::M_SAME>, E, MT>(BN, tc::tile_w(F));
-  cudaError_t e = cudaFuncSetAttribute(
-      dense_stack_tc_kernel<E, NT8, MT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static SmemLimit limit;
+  const cudaError_t e = limit.raise(dense_stack_tc_kernel<E, NT8, MT>);
   if (e != cudaSuccess) return e;
   const dim3 grid(tc::pos_tiles(Tn, F, MT), (N + BN - 1) / BN, B);
   dense_stack_tc_kernel<E, NT8, MT><<<grid, tc::GM_THREADS, smem, st>>>(

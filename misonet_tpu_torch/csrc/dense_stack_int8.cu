@@ -55,6 +55,7 @@
 
 #include "conv_common.cuh"
 #include "conv_mma.cuh"
+#include "smem_limit.cuh"
 
 namespace misonet {
 namespace {
@@ -252,9 +253,8 @@ cudaError_t launch_int8_tc(const bf16* x0, int c0, const bf16* x1, int c1,
   constexpr int BN = 8 * NT8;
   const size_t smem =
       tc::gather_smem<tc::Geo<tc::M_SAME>>(BN, tc::tile_w(F));
-  cudaError_t e = cudaFuncSetAttribute(
-      dense_stack_int8_tc_kernel<NT8>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static SmemLimit limit;
+  const cudaError_t e = limit.raise(dense_stack_int8_tc_kernel<NT8>);
   if (e != cudaSuccess) return e;
   const dim3 grid(tc::pos_tiles(T, F), (N + BN - 1) / BN, B);
   dense_stack_int8_tc_kernel<NT8><<<grid, tc::GM_THREADS, smem, st>>>(

@@ -61,6 +61,7 @@
 #include <cuda_runtime.h>
 
 #include "hermitian_chol.cuh"
+#include "smem_limit.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -336,11 +337,8 @@ cudaError_t launch(const float2* rs, const float2* rn, float2* w,
   const size_t smem = ((size_t)2 * rows * SR + bpb) * sizeof(float2);
   if (n * cl > 0x7fffffffLL) return cudaErrorInvalidValue;
   auto* kernel = mvdr_weights_kernel<M>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
+  static SmemLimit limit;
+  if (const cudaError_t e = limit.raise(kernel); e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(n * cl));
   cfg.blockDim = dim3(threads);

@@ -66,6 +66,7 @@
 
 #include "conv_common.cuh"
 #include "conv_mma.cuh"
+#include "smem_limit.cuh"
 
 namespace misonet {
 namespace {
@@ -214,9 +215,8 @@ cudaError_t launch_stencil_tc(const E* x, const float* scale,
   } else {
     smem = tc::gather_smem<PlaneGeo<MODE>, E>(BN, tc::tile_w(Fout));
   }
-  cudaError_t e = cudaFuncSetAttribute(
-      stencil_tc_kernel<MODE, NT8, E>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static SmemLimit limit;
+  const cudaError_t e = limit.raise(stencil_tc_kernel<MODE, NT8, E>);
   if (e != cudaSuccess) return e;
   const dim3 grid(tc_tiles(MODE, T, Fin, Fout), (N + BN - 1) / BN, B);
   stencil_tc_kernel<MODE, NT8, E><<<grid, tc::GM_THREADS, smem, st>>>(

@@ -128,6 +128,7 @@
 
 #include "conv_common.cuh"
 #include "conv_mma.cuh"
+#include "smem_limit.cuh"
 
 namespace misonet {
 namespace {
@@ -240,9 +241,8 @@ cudaError_t launch_dgrad_tc(const E* g, int N, Sources<E> src,
   constexpr int BN = 8 * NT8;
   const size_t smem =
       tc::gather_smem<tc::Geo<kDgradMap<MODE>>, E>(BN, tc::tile_w(Fin));
-  cudaError_t e = cudaFuncSetAttribute(
-      dgrad_tc_kernel<MODE, NT8, E>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static SmemLimit limit;
+  const cudaError_t e = limit.raise(dgrad_tc_kernel<MODE, NT8, E>);
   if (e != cudaSuccess) return e;
   const dim3 grid(tc::pos_tiles(T, Fin), (src.C + BN - 1) / BN, B);
   dgrad_tc_kernel<MODE, NT8, E><<<grid, tc::GM_THREADS, smem, st>>>(

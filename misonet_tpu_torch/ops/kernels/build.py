@@ -9,10 +9,17 @@ The compiler's ``-Xptxas -v`` report (registers, shared memory and spills
 per kernel) is kept beside it as ``<library>.log``.  The library is loaded
 with ``ctypes``; each kernel module declares the argument types of its own
 entry point.  Nothing here runs at import time.
+
+Each wrapper counts its launches in a plain int on itself through
+:func:`count_launch`, which also adds them to the calling thread's open
+:func:`tally`: a CUDA graph's capture learns from it which launches it
+recorded (another thread's launches meanwhile are not among them), and
+adds them again on each replay (:func:`add_launches`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -20,6 +27,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -104,3 +112,33 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     return ctypes.CDLL(str(build()))
+
+
+_tallies = threading.local()
+
+
+def count_launch(wrapper, attr: str) -> None:
+    """One more launch in the counter ``wrapper.<attr>`` (and in the
+    calling thread's open :func:`tally`, if any)."""
+    setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+    tally_ = getattr(_tallies, "open", None)
+    if tally_ is not None:
+        tally_[wrapper, attr] = tally_.get((wrapper, attr), 0) + 1
+
+
+@contextlib.contextmanager
+def tally():
+    """Yields {(wrapper, counter attribute): launches} counted on this
+    thread inside the block."""
+    outer = getattr(_tallies, "open", None)
+    _tallies.open = counts = {}
+    try:
+        yield counts
+    finally:
+        _tallies.open = outer
+
+
+def add_launches(counts: dict, sign: int = 1) -> None:
+    """Add ``sign`` times a :func:`tally`'s launches to the counters."""
+    for (wrapper, attr), n in counts.items():
+        setattr(wrapper, attr, getattr(wrapper, attr) + sign * n)

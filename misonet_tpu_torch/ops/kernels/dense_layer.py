@@ -38,7 +38,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from misonet_tpu_torch.ops.kernels import tc_pack
+from misonet_tpu_torch.ops.kernels import build, tc_pack
 from misonet_tpu_torch.ops.kernels.dense_stack import (
     DTYPES, check_tensor, pos_tiles, library as dense_stack_library)
 
@@ -135,9 +135,9 @@ def dense_layer(xs, w, bias, scale, mean, *, fuse_elu: bool = True,
     if err:
         raise RuntimeError(f"dense_layer kernel launch failed: CUDA error {err}")
     if bf16:
-        dense_layer.launches_bf16 += 1
+        build.count_launch(dense_layer, "launches_bf16")
     else:
-        dense_layer.launches += 1
+        build.count_launch(dense_layer, "launches")
     return y, sums, sqs
 
 

@@ -150,9 +150,9 @@ def dense_stack(xs, acc_in, w_stack, bias, scale, mean, n_fin: int):
     if err:
         raise RuntimeError(f"dense_stack kernel launch failed: CUDA error {err}")
     if bf16:
-        dense_stack.launches_bf16 += 1
+        build.count_launch(dense_stack, "launches_bf16")
     else:
-        dense_stack.launches += 1
+        build.count_launch(dense_stack, "launches")
     return y, sums, sqs, acc_out
 
 

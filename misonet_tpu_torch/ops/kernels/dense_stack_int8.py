@@ -142,7 +142,7 @@ def quantize_rows_packed(w_stack, scale, mean, widths):
     if err:
         raise RuntimeError(
             f"quantize_rows_kernel launch failed: CUDA error {err}")
-    quantize_rows_packed.launches += 1
+    build.count_launch(quantize_rows_packed, "launches")
     return qw, corr, rq
 
 
@@ -250,7 +250,7 @@ def dense_stack_int8(xs, acc_in, w_stack, bias, scale, mean, n_fin: int):
     if err:
         raise RuntimeError(
             f"dense_stack_int8 kernel launch failed: CUDA error {err}")
-    dense_stack_int8.launches += 1
+    build.count_launch(dense_stack_int8, "launches")
     return y, sums, sqs, acc_out
 
 

@@ -116,7 +116,7 @@ def hermitian_solve(r: torch.Tensor, d: torch.Tensor,
     if err:
         raise RuntimeError(
             f"hermitian_solve kernel launch failed: CUDA error {err}")
-    hermitian_solve.launches += 1
+    build.count_launch(hermitian_solve, "launches")
     return x
 
 

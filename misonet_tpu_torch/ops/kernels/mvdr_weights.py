@@ -110,7 +110,7 @@ def mvdr_weights(source_scm: torch.Tensor, noise_scm: torch.Tensor,
     if err:
         raise RuntimeError(
             f"mvdr_weights kernel launch failed: CUDA error {err}")
-    mvdr_weights.launches += 1
+    build.count_launch(mvdr_weights, "launches")
     return w
 
 

@@ -153,9 +153,9 @@ def stencil(x, w, bias, scale, mean, mode: str):
     if err:
         raise RuntimeError(f"stencil kernel launch failed: CUDA error {err}")
     if bf16:
-        stencil.launches_bf16 += 1
+        build.count_launch(stencil, "launches_bf16")
     else:
-        stencil.launches += 1
+        build.count_launch(stencil, "launches")
     return y, sums, sqs
 
 

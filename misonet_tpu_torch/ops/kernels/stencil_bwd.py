@@ -42,7 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch.nn.grad import conv2d_input, conv2d_weight
 
-from misonet_tpu_torch.ops.kernels import tc_pack
+from misonet_tpu_torch.ops.kernels import build, tc_pack
 from misonet_tpu_torch.ops.kernels.dense_stack import (
     DTYPES, check_tensor, library as dense_stack_library)
 from misonet_tpu_torch.ops.kernels.stencil import out_bins
@@ -197,9 +197,9 @@ def stencil_bwd(g, xs, w, scale, mean, mode: str, need_dx: bool = True,
     if err:
         raise RuntimeError(f"stencil_bwd kernel launch failed: CUDA error {err}")
     if bf16:
-        stencil_bwd.launches_bf16 += 1
+        build.count_launch(stencil_bwd, "launches_bf16")
     else:
-        stencil_bwd.launches += 1
+        build.count_launch(stencil_bwd, "launches")
     dscale = dmean = None
     if stats:
         dscale, dmean = sgx, -scale * sg

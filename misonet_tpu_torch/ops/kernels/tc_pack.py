@@ -155,7 +155,7 @@ def pack_tf32(w: torch.Tensor, widths, transpose: bool = False) -> torch.Tensor:
             out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"pack_tf32_kernel launch failed: CUDA error {err}")
-    pack_tf32.launches += 1
+    build.count_launch(pack_tf32, "launches")
     return out
 
 

@@ -5,7 +5,8 @@ prints (trainer.py:216-221).  Here:
 
 * **The record.**  ``span(name)`` marks a range of the program and
   ``count(name, n)`` counts an event (``sync``: the host waits for the card
-  to drain; ``h2d``: a copy of host memory to the card).  Both are gated on
+  to drain; ``h2d``: a copy of host memory to the card; ``decode.capture``,
+  ``decode.replay``: the MISO1 decode's CUDA graph captured, replayed).  Both are gated on
   one flag, ``torch.autograd.profiler._is_profiler_enabled``, which is true
   while a ``torch.profiler`` profile runs (the benchmark's ``--trace 1``
   stretch, or :func:`trace` around any region) and false otherwise; no

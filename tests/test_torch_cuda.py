@@ -2,8 +2,8 @@
 its plain PyTorch version (the version the CPU tests hold to the JAX
 package), the fused MISO1 and MISO3 forwards and MISO1 train-step gradients
 (float32 and bf16) against the plain path, the bf16 and int8 forwards'
-launches, and the MVDR stage through the weights kernel (its solve is the
-solve kernel's).
+launches, the MVDR stage through the weights kernel (its solve is the
+solve kernel's), and the decode's CUDA graph against the eager decode.
 
 Card only (marker ``cuda``); every test skips itself without a CUDA device.
 This file imports no JAX, so on a machine without JAX it runs with
@@ -24,6 +24,8 @@ and their outputs repeat bit for bit; the float64 runs are chip_smoke.py's
 references."""
 
 import dataclasses
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -34,6 +36,7 @@ from chip_smoke import (  # noqa: E402
     dense_layer_f64, dense_stack_f64, pd_scms, sim_scms, stencil_f64)
 from misonet_tpu_torch.beamforming.mvdr import mvdr_beamform  # noqa: E402
 from misonet_tpu_torch.config import ModelConfig  # noqa: E402
+from misonet_tpu_torch.inference.separate import make_full_array_decode  # noqa: E402
 from misonet_tpu_torch.losses import loss_enhance  # noqa: E402
 from misonet_tpu_torch.models import make_miso1, make_miso3  # noqa: E402
 from misonet_tpu_torch.ops.kernels import launch_counts, reset_launch_counts  # noqa: E402
@@ -66,6 +69,7 @@ from misonet_tpu_torch.ops.kernels.stencil_bwd import (  # noqa: E402
     stencil_bwd,
     stencil_bwd_plain,
 )
+from misonet_tpu_torch.utils import profiling  # noqa: E402
 
 ATOL = 1e-4
 BF16_ATOL = 1e-2
@@ -1244,3 +1248,242 @@ def test_css_longform_on_the_card(cuda):
                                           stencil_bf16=10 * blocks,
                                           mvdr_weights=blocks)
         assert all(np.isfinite(row[k]) for k in ("mixture", "miso1", "mvdr"))
+
+
+def _mixes(rng, n, shape):
+    return [torch.complex(_t(rng, shape), _t(rng, shape)) for _ in range(n)]
+
+
+def _eager(decode, xs):
+    """The eager decode of each mix and the launches of one."""
+    with torch.inference_mode():
+        reset_launch_counts()
+        out = [decode.graphs.forward(x) for x in xs]
+        counts = {k: v // len(xs) for k, v in launch_counts().items()}
+    return out, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg,batch", [
+    (ModelConfig(), 1),                             # a CSS block, bf16
+    (ModelConfig(compute_dtype="float32"), 1),
+    (ModelConfig(quant_int8=True), 1),
+    (ModelConfig(), 2),                             # the cascade's 2 chunks
+], ids=["bf16", "float32", "int8", "bucket2"])
+def test_graphed_decode_equals_eager(cuda, cfg, batch, monkeypatch):
+    """The SMS-WSJ plan's decode at [batch, 6, 501, 129]: the first call
+    eager, the second captured and replayed, the rest replayed, each the
+    eager decode's bits and one forward's launches (50 dense_stack of the
+    mode, 10 bf16 or float32 stencil).  In float32 cuDNN's default engines
+    for the plain levels' convs do not repeat their own bits (about 2e-6
+    apart from call to call), so that case takes its deterministic ones."""
+    if cfg.compute_dtype == "float32":
+        monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    model = make_miso1(cfg, device=cuda,
+                       generator=torch.Generator().manual_seed(1))
+    decode = make_full_array_decode(model, 6)
+    xs = _mixes(np.random.default_rng(4), 3, (batch, 6, 501, 129))
+    want, per_call = _eager(decode, xs)
+    dense = ("dense_stack_int8" if cfg.quant_int8 else
+             "dense_stack" if cfg.compute_dtype == "float32" else
+             "dense_stack_bf16")
+    stencil_mode = "stencil" if cfg.compute_dtype == "float32" else "stencil_bf16"
+    assert per_call == _counts(**{dense: 50, stencil_mode: 10})
+    for i, x in enumerate(xs + xs):
+        reset_launch_counts()
+        got = decode(x)
+        assert launch_counts() == per_call, i
+        assert got.shape == want[i % 3].shape and torch.equal(got, want[i % 3]), i
+    (graph,) = decode.graphs.entries.values()
+    assert graph.graph is not None
+
+
+@pytest.mark.cuda
+def test_graphed_decode_recaptures_after_new_weights(cuda):
+    """A ``load_state_dict`` drops the graph: the next call runs eagerly,
+    the one after captures again, and the replays give the new weights'
+    decode (``decode.capture`` counted twice, ``decode.replay`` 4 times)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model = make_miso1(NARROW, device=cuda,
+                       generator=torch.Generator().manual_seed(1))
+    other = make_miso1(NARROW, device=cuda,
+                       generator=torch.Generator().manual_seed(2)).state_dict()
+    decode = make_full_array_decode(model, 6)
+    (x,) = _mixes(np.random.default_rng(5), 1, (1, 6, 64, 129))
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        (old,), _ = _eager(decode, [x])
+        first = [decode(x) for _ in range(3)]
+        model.load_state_dict(other)
+        (new,), _ = _eager(decode, [x])
+        second = [decode(x) for _ in range(3)]
+        counts = profiling.records()["counts"]
+    profiling.reset()
+    assert counts["decode.capture"] == 2 and counts["decode.replay"] == 4
+    assert not torch.equal(old, new)
+    assert all(torch.equal(g, old) for g in first)
+    assert all(torch.equal(g, new) for g in second)
+
+
+@pytest.mark.cuda
+def test_graphed_decode_serves_two_threads(cuda):
+    """Two threads, one on its own stream, decode their own mixes through
+    the same graph 200 times each: every result is its own mix's."""
+    model = make_miso1(NARROW, device=cuda,
+                       generator=torch.Generator().manual_seed(1))
+    decode = make_full_array_decode(model, 6)
+    xs = _mixes(np.random.default_rng(6), 2, (1, 6, 64, 129))
+    want, _ = _eager(decode, xs)
+    streams = [None, torch.cuda.Stream()]
+
+    def serve(i):
+        with torch.cuda.stream(streams[i]):
+            outs = [decode(xs[i]) for _ in range(200)]
+            torch.cuda.current_stream().synchronize()
+        return outs
+
+    with ThreadPoolExecutor(max_workers=2) as tp:
+        got = list(tp.map(serve, range(2)))
+    for i in range(2):
+        bad = sum(not torch.equal(g, want[i]) for g in got[i])
+        assert bad == 0, (i, bad)
+    assert len(decode.graphs.entries) == 1
+
+
+@pytest.mark.cuda
+def test_graphed_decode_captures_beside_eager_work(cuda):
+    """The cascade's two clients at two buckets: one thread decodes its
+    1-chunk mix 12 times (eager, capture, replays) while the other decodes
+    2-chunk mixes at shapes it has not seen (each first call eager, each
+    second a capture beside the first thread's replays), beamforms them and
+    reads both back.  Every decode is its own mix's eager decode."""
+    model = make_miso1(NARROW, device=cuda,
+                       generator=torch.Generator().manual_seed(1))
+    decode = make_full_array_decode(model, 6)
+    rng = np.random.default_rng(7)
+    (a,) = _mixes(rng, 1, (1, 6, 64, 129))
+    bs = [_mixes(rng, 1, (2, 6, t, 129))[0] for t in range(40, 56)]
+    (want_a,), _ = _eager(decode, [a])
+    want_b, _ = _eager(decode, bs)
+    started, finished = threading.Event(), threading.Event()
+
+    def graphed():
+        started.wait()
+        outs = [decode(a).cpu() for _ in range(12)]
+        finished.set()
+        return outs
+
+    def eager():
+        outs, k = [], 0
+        with torch.cuda.stream(torch.cuda.Stream()):
+            while not finished.is_set() or k < 2 * len(bs):
+                i = k % len(bs)
+                est = decode(bs[i])
+                y = mvdr_beamform(est[:, 0], bs[i])
+                outs.append((i, est.cpu(), y.cpu()))
+                started.set()
+                k += 1
+        return outs
+
+    with ThreadPoolExecutor(max_workers=2) as tp:
+        fa, fb = tp.submit(graphed), tp.submit(eager)
+        got_a, got_b = fa.result(), fb.result()
+    assert all(torch.equal(g, want_a.cpu()) for g in got_a)
+    bad = [k for k, (i, est, y) in enumerate(got_b)
+           if not torch.equal(est, want_b[i].cpu())
+           or not torch.isfinite(torch.view_as_real(y)).all()]
+    assert bad == [], (bad, len(got_b))
+    assert decode.graphs.entries[decode.graphs.key(a)].graph is not None
+
+
+@pytest.mark.cuda
+def test_graphed_decode_survives_a_failed_capture(cuda):
+    """A capture that the card refuses (here a host sync inside it) leaves
+    the key clean: that call returns the eager decode with one forward's
+    launches, the next call captures, and its replays match."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model = make_miso1(NARROW, device=cuda,
+                       generator=torch.Generator().manual_seed(1))
+    decode = make_full_array_decode(model, 6)
+    (x,) = _mixes(np.random.default_rng(8), 1, (1, 6, 64, 129))
+    (want,), per_call = _eager(decode, [x])
+    forward, fail = decode.graphs.forward, [True]
+
+    def flaky(mix):
+        out = forward(mix)
+        if fail and torch.cuda.is_current_stream_capturing():
+            fail.clear()
+            torch.cuda.current_stream().synchronize()
+        return out
+
+    decode.graphs.forward = flaky
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got, counts = [], []
+        for _ in range(5):
+            reset_launch_counts()
+            got.append(decode(x))
+            counts.append(launch_counts())
+        tally = profiling.records()["counts"]
+    profiling.reset()
+    assert not fail and counts == [per_call] * 5
+    assert all(torch.equal(g, want) for g in got)
+    assert tally["decode.capture"] == 1 and tally["decode.replay"] == 3
+
+
+@pytest.mark.cuda
+def test_graphed_decode_follows_the_config(cuda, monkeypatch):
+    """A switch of ``model.cfg`` to the plain modules between graphed
+    decodes at one shape gives the plain decode and no kernel launches, and
+    the switch back the fused graph's decode and its launches (a graph
+    stands for one config).  cuDNN's deterministic engines, so that the
+    plain path repeats its own bits."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    model = make_miso1(NARROW, device=cuda,
+                       generator=torch.Generator().manual_seed(1))
+    decode = make_full_array_decode(model, 6)
+    (x,) = _mixes(np.random.default_rng(9), 1, (1, 6, 64, 129))
+    fused_cfg = model.cfg
+    plain_cfg = dataclasses.replace(fused_cfg, flat_dense=False)
+    (fused,), fused_launches = _eager(decode, [x])
+    model.cfg = plain_cfg
+    (plain,), plain_launches = _eager(decode, [x])
+    assert not torch.equal(fused, plain)
+    assert plain_launches == _counts()
+    for cfg, want, launches in [(fused_cfg, fused, fused_launches),
+                                (plain_cfg, plain, plain_launches),
+                                (fused_cfg, fused, fused_launches)]:
+        model.cfg = cfg
+        for i in range(3):
+            reset_launch_counts()
+            got = decode(x)
+            assert launch_counts() == launches, (cfg.flat_dense, i)
+            assert torch.equal(got, want), (cfg.flat_dense, i)
+    assert all(e.graph is not None for e in decode.graphs.entries.values())
+    assert len(decode.graphs.entries) == 2
+
+
+@pytest.mark.cuda
+def test_stencil_launches_from_two_threads(cuda):
+    """PERF.md's witness of the two-thread launch fault: the bf16 stencil
+    up mode at 7 and 15 input bins, 20,000 launches on each of two threads,
+    none refused (each kernel's shared-memory limit is set once)."""
+    rng = np.random.default_rng(16)
+    args = [_stencil_bf16_args(rng, "up", 32, 32, f_in, 16, b=1)
+            for f_in in (7, 15)]
+
+    def launch(a):
+        failed = 0
+        for _ in range(20_000):
+            try:
+                stencil(*a, "up")
+            except RuntimeError:
+                failed += 1
+        return failed
+
+    with ThreadPoolExecutor(max_workers=2) as tp:
+        failed = list(tp.map(launch, args))
+    torch.cuda.synchronize()
+    assert failed == [0, 0]

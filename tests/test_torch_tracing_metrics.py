@@ -1,6 +1,6 @@
 """The benchmark's readers of the program's spans and counters
 (``benchmark/metrics/``: decode_host_ms_per_req, decode_idle_ms_per_req,
-syncs_per_req, data_wait_ms_per_step, optimizer_ms_per_step,
+syncs_per_req, decode_replays_per_req, data_wait_ms_per_step, optimizer_ms_per_step,
 backward_idle_ms_per_step, syncs_per_step) on a hand-built run: a stand-in
 for the trace's aggregate and the program's record filled under a CPU
 profiler.  Each returns None where nothing was traced or the record is
@@ -20,7 +20,8 @@ from benchmark import harness, trace  # noqa: E402
 from misonet_tpu_torch.utils import profiling  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-SERVE = ("decode_host_ms_per_req", "decode_idle_ms_per_req", "syncs_per_req")
+SERVE = ("decode_host_ms_per_req", "decode_idle_ms_per_req", "syncs_per_req",
+         "decode_replays_per_req")
 TRAIN = ("data_wait_ms_per_step", "optimizer_ms_per_step",
          "backward_idle_ms_per_step", "syncs_per_step")
 US = 1_000
@@ -89,6 +90,15 @@ def test_syncs_per_req_and_per_step():
     _record([("serve.block", "readback", 0)], {"sync": 6, "h2d": 3})
     assert _metric("syncs_per_req").read(_run(requests=3)) == 2.0
     assert _metric("syncs_per_step").read(_run(steps=4)) == 1.5
+
+
+def test_decode_replays_per_req():
+    _record([("serve.block", "miso1.decode", 0)] * 3, {"decode.replay": 3})
+    assert _metric("decode_replays_per_req").read(_run(requests=3)) == 1.0
+    # a program that counts no replay (no graph in its decode) reads None
+    profiling.reset()
+    _record([("serve.block", "miso1.decode", 0)], {"sync": 2})
+    assert _metric("decode_replays_per_req").read(_run(requests=1)) is None
 
 
 def test_syncs_read_zero_where_spans_ran_and_nothing_waited():

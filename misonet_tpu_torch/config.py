@@ -7,7 +7,8 @@ copy so that it imports nothing of the JAX package.  What the port does
 not implement yet is refused: ``sequence_parallel`` where a model is built
 (``models.miso.check_config``), more than one device in ``MeshConfig``
 where a ``Config`` is made (the port runs on one card; ``parallel/`` is
-not ported).
+not ported).  :class:`TFGridNetConfig` is the port's own: the JAX package
+has no TF-GridNet, and its YAML reader does not know the ``network`` key.
 """
 
 from __future__ import annotations
@@ -118,6 +119,28 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TFGridNetConfig:
+    """TF-GridNet as a MISO1 separator (Wang et al., TASLP 31 (2023),
+    arXiv:2211.12433).  Field names and defaults are those of ESPnet's
+    ``TFGridNet`` separator (espnet2/enh/separator/tfgridnet_separator.py);
+    a YAML's ``MISO_1`` section selects it with ``network: TFGridNet``.
+
+    ``compute_dtype`` picks the activation precision as in
+    :class:`ModelConfig`; parameters stay float32."""
+
+    n_layers: int = 6               # B, the number of GridNet blocks
+    emb_dim: int = 48               # D
+    emb_ks: int = 4                 # I, the unfold's kernel
+    emb_hs: int = 1                 # J, the unfold's stride
+    lstm_hidden_units: int = 192    # H, each direction
+    attn_n_head: int = 4            # L
+    attn_approx_qk_dim: int = 512   # E = ceil(512 / F) per head
+    eps: float = 1e-5
+    n_fft: int = 256                # F = n_fft // 2 + 1 bins (the STFT's length)
+    compute_dtype: str = "bfloat16"
+
+
+@dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
     """Adam + plateau schedule (reference NN_BSS.yml:181-191, run.py:215-223)."""
 
@@ -172,7 +195,7 @@ class MeshConfig:
 class Config:
     stft: StftConfig = StftConfig()
     dataset: DatasetConfig = DatasetConfig()
-    miso1: ModelConfig = ModelConfig()
+    miso1: ModelConfig | TFGridNetConfig = ModelConfig()
     miso2: ModelConfig = ModelConfig()
     miso3: ModelConfig = ModelConfig()
     optimizer: OptimizerConfig = OptimizerConfig()
@@ -186,7 +209,20 @@ class Config:
                              "device count is 0 (all) or more")
 
 
-def _model_from_yaml(d: dict[str, Any]) -> ModelConfig:
+def _model_from_yaml(d: dict[str, Any],
+                     stft: StftConfig) -> ModelConfig | TFGridNetConfig:
+    if d.get("network", "MISONet") == "TFGridNet":
+        keys = {f.name for f in dataclasses.fields(TFGridNetConfig)}
+        unknown = set(d) - keys - {"network"}
+        if unknown:
+            raise ValueError(f"TFGridNet takes no {sorted(unknown)}")
+        if d.get("n_fft", stft.length) != stft.length:
+            raise ValueError(f"TFGridNet n_fft {d['n_fft']} is not the STFT's "
+                             f"length {stft.length}")
+        return TFGridNetConfig(**{k: v for k, v in d.items() if k in keys}
+                               | {"n_fft": stft.length})
+    if d.get("network", "MISONet") != "MISONet":
+        raise ValueError(f"network {d['network']!r}: MISONet or TFGridNet")
     en = tuple(d.get("en_bottleneck_channels", ModelConfig.en_channels))
     return ModelConfig(
         num_bottleneck=d.get("num_bottleneck", 7),
@@ -280,9 +316,9 @@ def load_yaml(path: str | Path) -> Config:
     return Config(
         stft=stft,
         dataset=dataset,
-        miso1=_model_from_yaml(raw.get("MISO_1", {})),
-        miso2=_model_from_yaml(raw.get("MISO_2", {})),
-        miso3=_model_from_yaml(raw.get("MISO_3", {})),
+        miso1=_model_from_yaml(raw.get("MISO_1", {}), stft),
+        miso2=_model_from_yaml(raw.get("MISO_2", {}), stft),
+        miso3=_model_from_yaml(raw.get("MISO_3", {}), stft),
         optimizer=optimizer,
         trainer_sp=_trainer(tr_sp_raw),
         trainer_en=_trainer(tr_en_raw),
@@ -290,4 +326,5 @@ def load_yaml(path: str | Path) -> Config:
 
 
 __all__ = ["Config", "DatasetConfig", "MeshConfig", "ModelConfig",
-           "OptimizerConfig", "StftConfig", "TrainerConfig", "load_yaml"]
+           "OptimizerConfig", "StftConfig", "TFGridNetConfig", "TrainerConfig",
+           "load_yaml"]

@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from misonet_tpu_torch.config import ModelConfig
+from misonet_tpu_torch.config import ModelConfig, TFGridNetConfig
 from misonet_tpu_torch.models.blocks import (
     ConvBlock,
     DeconvBlock,
@@ -43,6 +43,7 @@ from misonet_tpu_torch.models.flat_dense import (
     merge_bundles,
     resolve_flat,
 )
+from misonet_tpu_torch.models.tfgridnet import make_tfgridnet
 
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -204,14 +205,20 @@ def _build(cfg, in_channels, num_spks, device, generator,
     return model.to(device)
 
 
-def make_miso1(cfg: ModelConfig, num_mics: int = 6, num_spks: int = 2, *,
-               device="cuda", generator: torch.Generator | None = None,
-               sp_mesh=None):
+def make_miso1(cfg: ModelConfig | TFGridNetConfig, num_mics: int = 6,
+               num_spks: int = 2, *, device="cuda",
+               generator: torch.Generator | None = None, sp_mesh=None):
     """Separation net: C-mic complex mixture -> num_spks sources at the
-    reference mic (reference model.py:8-111).  Parameters are drawn from
-    ``generator`` (a CPU ``torch.Generator``; seed 0 when None).
+    reference mic (reference model.py:8-111), or the TF-GridNet of a
+    ``TFGridNetConfig`` (``models/tfgridnet.py``).  Parameters are drawn
+    from ``generator`` (a CPU ``torch.Generator``; seed 0 when None).
     ``sp_mesh`` activates the sequence-parallel TCN when
     ``cfg.sequence_parallel``."""
+    if isinstance(cfg, TFGridNetConfig):
+        if sp_mesh is not None:
+            raise ValueError("TF-GridNet has no sequence-parallel path")
+        return make_tfgridnet(cfg, num_mics, num_spks, device=device,
+                              generator=generator)
     return _build(cfg, num_mics, num_spks, device, generator, sp_mesh)
 
 

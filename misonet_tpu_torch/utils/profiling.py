@@ -6,7 +6,10 @@ prints (trainer.py:216-221).  Here:
 * **The record.**  ``span(name)`` marks a range of the program and
   ``count(name, n)`` counts an event (``sync``: the host waits for the card
   to drain; ``h2d``: a copy of host memory to the card; ``decode.capture``,
-  ``decode.replay``: the MISO1 decode's CUDA graph captured, replayed).  Both are gated on
+  ``decode.replay``: the MISO1 decode's CUDA graph captured, replayed;
+  ``tfgridnet.rnn_steps``: a BLSTM call's sequence length), and
+  ``node_span(node, name)`` marks an autograd node's run in the backward,
+  on the thread that runs it.  All are gated on
   one flag, ``torch.autograd.profiler._is_profiler_enabled``, which is true
   while a ``torch.profiler`` profile runs (the benchmark's ``--trace 1``
   stretch, or :func:`trace` around any region) and false otherwise; no
@@ -126,6 +129,27 @@ def span(name: str):
     if not _profiler._is_profiler_enabled:
         return _OFF
     return _On(name)
+
+
+def node_span(node, name: str) -> None:
+    """Mark the run of the autograd ``node`` (a tensor's ``grad_fn``) in the
+    backward as the range ``name``: a pre-hook on the node opens the span and
+    a hook on it closes it, both on the thread that runs the node.  Hooks are
+    set only while a profiler runs as the forward makes the node."""
+    if node is None or not _profiler._is_profiler_enabled:
+        return
+    opened = []
+
+    def enter(grad_outputs):
+        opened.append(span(name))
+        opened[-1].__enter__()
+
+    def leave(grad_inputs, grad_outputs):
+        if opened:
+            opened.pop().__exit__(None, None, None)
+
+    node.register_prehook(enter)
+    node.register_hook(leave)
 
 
 def count(name: str, n: int = 1) -> None:

@@ -26,6 +26,28 @@ frequency) at each t.  ESPnet scales the waveform by its standard deviation;
 this net is given the spectrogram, so it scales by the spectrogram's RMS, on
 the device.
 
+Layout.  The blocks hold their activations as [B, T, F, D]: the logical
+[B, D, T, F] in channels-last order, from the input conv's output to the
+output deconv's input.  So LN4D normalises over the innermost axis, and the
+attention's 1x1 convs are matmuls over it.  In each full- or sub-band
+module:
+
+* the normalised input is gathered straight into the BLSTM's sequence-major
+  order, [L', N, I*D], and rounded as it goes; the I taps of a window are
+  tap-major (row l, tap k: position l*J + k), and the BLSTM's input weights
+  keep ESPnet's channel-major columns (channel c, tap k: c*I + k) and are
+  reordered in their per-call cast;
+* ``torch.lstm`` runs sequence-major (``batch_first=False``), so neither the
+  call nor its backward transposes;
+* the ConvTranspose1d is one matmul of the BLSTM's output [L'*N, 2H] with
+  the weight as [2H, I*D] (tap-major), then an overlap-add of the I taps at
+  stride J onto the residual plus the bias, written in the residual's
+  layout.  The gather and the overlap-add are each other's backward.
+
+The attention flattens Q and K per frame in (F, E) order and V in (F, C):
+one order shared by Q and K leaves the scores as they are, and V's order is
+the heads' output's, which the concat projection reads as channels.
+
 Precision (``TFGridNetConfig.compute_dtype``): parameters stay float32 and
 are cast where they are used.  In "bfloat16":
 
@@ -35,6 +57,8 @@ are cast where they are used.  In "bfloat16":
   inputs, weights and states; cuDNN sums the gates in float32;
 * the norms compute their statistics and their output in float32 and store
   the output in bfloat16;
+* the deconv's taps are bfloat16 products; the overlap-add sums them, the
+  bias and the residual in float32 and rounds once;
 * the attention's scores are a bfloat16 matmul, its softmax float32;
 * the RMS and the rescale of the output are float32, the output complex64.
 
@@ -43,8 +67,13 @@ are cast where they are used.  In "bfloat16":
 Traced (``utils/profiling``): the spans ``tfgridnet.intra``,
 ``tfgridnet.inter`` and ``tfgridnet.attn`` around each block's three
 modules, ``tfgridnet.rnn`` around each BLSTM call and ``tfgridnet.rnn_bwd``
-around its autograd node in the backward; the counter
-``tfgridnet.rnn_steps`` adds each BLSTM call's sequence length.
+around its autograd node in the backward; the counters
+``tfgridnet.rnn_steps``, adding each BLSTM call's sequence length, and
+``tfgridnet.relayout_bytes``, adding the bytes the forward's layout work
+writes: each module's gather and overlap-add (its float32 accumulator, the
+taps added to it and its rounding), the attention's two relayouts (the
+heads stacked into the batch, their outputs into channels), and the padding
+and crop where T or F needs them.  The backward does the mirror of each.
 """
 
 from __future__ import annotations
@@ -55,6 +84,7 @@ import warnings
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from misonet_tpu_torch.config import TFGridNetConfig
 from misonet_tpu_torch.utils import profiling
@@ -63,18 +93,35 @@ COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 MS_FLOOR = 1e-10   # the input's mean square is held above this (silence)
 # cuDNN copies weights that are not views of one buffer (the casts are not)
 _UNFLATTENED = "RNN module weights are not part of single contiguous chunk"
+RELAYOUT = "tfgridnet.relayout_bytes"
+# a module's sequence axis first: the full band runs along F, the sub band
+# along T, over the [B, T, F, D] activations
+ALONG_F, ALONG_T = (2, 0, 1, 3), (1, 0, 2, 3)
+
+
+def _standardize(x, dims, eps):
+    """(x - mean) / sqrt(var + eps) over ``dims``, in float32."""
+    x32 = x.float()
+    var, mean = torch.var_mean(x32, dims, unbiased=False, keepdim=True)
+    return (x32 - mean) * torch.rsqrt(var + eps)
 
 
 def _norm(x, dims, gamma, beta, eps):
     """(x - mean) / sqrt(var + eps) * gamma + beta over ``dims``, in
-    float32, stored in ``x``'s dtype."""
-    x32 = x.float()
-    var, mean = torch.var_mean(x32, dims, unbiased=False, keepdim=True)
-    return ((x32 - mean) * torch.rsqrt(var + eps) * gamma + beta).to(x.dtype)
+    float32."""
+    return _standardize(x, dims, eps) * gamma + beta
+
+
+def _cast(w, dtype):
+    """``w`` in ``dtype``, contiguous, in one pass."""
+    return w.to(dtype, memory_format=torch.contiguous_format).contiguous()
 
 
 class LayerNormalization4D(nn.Module):
-    """Over the channels at each (t, f); gain and shift [1, C, 1, 1]."""
+    """Over the channels at each (t, f) of [B, T, F, D]; gain and shift
+    [1, D, 1, 1].  Its output goes straight into a BLSTM's input: the
+    windows of ``taps`` positions at ``stride`` along the axis ``perm`` puts
+    first, [L', N, I*D] in x's dtype (:class:`_NormUnfold`)."""
 
     def __init__(self, channels: int, eps: float):
         super().__init__()
@@ -82,12 +129,15 @@ class LayerNormalization4D(nn.Module):
         self.beta = nn.Parameter(torch.zeros(1, channels, 1, 1))
         self.eps = eps
 
-    def forward(self, x):
-        return _norm(x, (1,), self.gamma, self.beta, self.eps)
+    def forward(self, x, perm, taps: int, stride: int):
+        return _NormUnfold.apply(_standardize(x, (3,), self.eps),
+                                 self.gamma.flatten(), self.beta.flatten(),
+                                 perm, taps, stride, x.dtype)
 
 
 class LayerNormalization4DCF(nn.Module):
-    """Over (channels, frequency) at each t; gain and shift [1, C, 1, F]."""
+    """Over (frequency, channels) at each t of [B, T, F, C], stored in x's
+    dtype; gain and shift [1, C, 1, F]."""
 
     def __init__(self, channels: int, freqs: int, eps: float):
         super().__init__()
@@ -96,7 +146,9 @@ class LayerNormalization4DCF(nn.Module):
         self.eps = eps
 
     def forward(self, x):
-        return _norm(x, (1, 3), self.gamma, self.beta, self.eps)
+        c, f = self.gamma.shape[1], self.gamma.shape[3]
+        gamma, beta = (p.view(c, f).t() for p in (self.gamma, self.beta))
+        return _norm(x, (2, 3), gamma, beta, self.eps).to(x.dtype)
 
 
 def _projection(cin: int, cout: int, freqs: int, eps: float) -> nn.Sequential:
@@ -105,29 +157,129 @@ def _projection(cin: int, cout: int, freqs: int, eps: float) -> nn.Sequential:
 
 
 def _project(seq: nn.Sequential, x):
-    """LN4DCF(PReLU(conv1x1(x))) in ``x``'s dtype."""
+    """LN4DCF(PReLU(conv1x1(x))) on [B, T, F, Cin] in ``x``'s dtype: the
+    conv a matmul over the innermost axis."""
     conv, prelu, norm = seq
-    y = F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype))
+    y = F.linear(x, conv.weight.to(x.dtype).flatten(1), conv.bias.to(x.dtype))
     return norm(F.prelu(y, prelu.weight.to(x.dtype)))
 
 
-def _blstm(rnn: nn.LSTM, x, train: bool):
-    """[N, L, In] -> [N, L, 2H]: the bidirectional LSTM ``rnn`` in ``x``'s
-    dtype, its weights cast to it."""
-    n, length, _ = x.shape
+def _taps(seq, taps: int, stride: int) -> list:
+    """The views [L', ...] of ``seq`` [S, ...] at positions k, k + J, ...:
+    tap k of each of the L' = (S - I) / J + 1 windows, for k < I."""
+    steps = (seq.shape[0] - taps) // stride + 1
+    return [seq[k:k + (steps - 1) * stride + 1:stride] for k in range(taps)]
+
+
+def _gather(seq, taps: int, stride: int, dtype):
+    """seq [S, ..., D] -> [L', ..., I, D] in ``dtype``: row l, tap k holds
+    position l*J + k."""
+    views = _taps(seq, taps, stride)
+    out = seq.new_empty((*views[0].shape[:-1], taps, seq.shape[-1]),
+                        dtype=dtype)
+    for k, v in enumerate(views):
+        out[..., k, :].copy_(v)
+    return out
+
+
+def _overlap_add(seq, z, stride: int) -> None:
+    """seq [S, ..., D] += z [L', ..., I, D] in place, tap k of row l onto
+    position l*J + k."""
+    for k, v in enumerate(_taps(seq, z.shape[-2], stride)):
+        v += z[..., k, :]
+
+
+class _NormUnfold(torch.autograd.Function):
+    """A norm's last op, xhat * gamma + beta, written straight into the
+    BLSTM's input: xhat [B, T, F, D] (float32) -> [L', N, I*D] in ``dtype``,
+    sequence-major along the axis ``perm`` puts first (N the other two, in
+    order), row l's taps tap-major; one write a tap.  The backward
+    overlap-adds the gradient in float32."""
+
+    @staticmethod
+    def forward(ctx, xhat, gamma, beta, perm, taps, stride, dtype):
+        views = _taps(xhat.permute(perm), taps, stride)
+        u = xhat.new_empty((*views[0].shape[:-1], taps, xhat.shape[-1]),
+                           dtype=dtype)                      # [L', N1, N2, I, D]
+        for k, v in enumerate(views):
+            torch.addcmul(beta, v, gamma, out=u[..., k, :])
+        ctx.save_for_backward(xhat, gamma)
+        ctx.perm, ctx.stride, ctx.taps_shape = perm, stride, u.shape
+        return u.view(u.shape[0], -1, taps * u.shape[-1])
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        xhat, gamma = ctx.saved_tensors
+        acc = torch.zeros_like(xhat)
+        _overlap_add(acc.permute(ctx.perm), g.reshape(ctx.taps_shape),
+                     ctx.stride)
+        need = ctx.needs_input_grad
+        return (acc * gamma if need[0] else None,
+                (acc * xhat).sum((0, 1, 2)) if need[1] else None,
+                acc.sum((0, 1, 2)) if need[2] else None,
+                None, None, None, None)
+
+
+class _OverlapAdd(torch.autograd.Function):
+    """h [B, T, F, D] + bias [D] + the taps z [L', N1, N2, I, D]
+    overlap-added along the axis ``perm`` puts first: summed in float32,
+    rounded once to h's dtype, in h's layout; the backward gathers."""
+
+    @staticmethod
+    def forward(ctx, z, h, bias, perm, stride):
+        ctx.perm, ctx.stride, ctx.taps = perm, stride, z.shape[-2]
+        acc = h + bias                    # float32: the bias is float32
+        _overlap_add(acc.permute(perm), z, stride)
+        return acc.to(h.dtype)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        dz = db = None
+        if ctx.needs_input_grad[0]:
+            dz = _gather(g.permute(ctx.perm), ctx.taps, ctx.stride, g.dtype)
+        if ctx.needs_input_grad[2]:
+            db = g.sum((0, 1, 2), dtype=torch.float32)
+        return dz, g, db, None, None
+
+
+def _deconv(linear: nn.ConvTranspose1d, y, h, perm, stride: int):
+    """h + ConvTranspose1d(y) along the axis ``perm`` puts first, y [L', N1,
+    N2, 2H]: one matmul with the weight as [2H, I*D], tap-major, then the
+    overlap-add of the I taps onto h and the bias."""
+    cin, d, taps = linear.weight.shape
+    w = _cast(linear.weight.permute(0, 2, 1), y.dtype).view(cin, taps * d)
+    z = torch.mm(y.reshape(-1, cin), w).view(*y.shape[:-1], taps, d)
+    return _OverlapAdd.apply(z, h, linear.bias, perm, stride)
+
+
+def _blstm(rnn: nn.LSTM, x, train: bool, taps: int = 1):
+    """[L, N, In] -> [L, N, 2H]: the bidirectional LSTM ``rnn`` over N
+    sequences, sequence-major, in ``x``'s dtype, its weights cast to it.
+    x's columns are ``taps`` groups of In / taps, group k holding tap k;
+    ``rnn``'s input weights keep ESPnet's columns (channel c, tap k at
+    c * taps + k) and are reordered in the cast."""
+    length, n, cin = x.shape
     profiling.count("tfgridnet.rnn_steps", length)
     with profiling.span("tfgridnet.rnn"):
         h0 = x.new_zeros(2, n, rnn.hidden_size)
-        weights = [w.to(x.dtype) for layer in rnn.all_weights for w in layer]
+        weights = []
+        for w_ih, *rest in rnn.all_weights:
+            w_ih = w_ih.view(-1, cin // taps, taps).transpose(1, 2)
+            weights += [_cast(w_ih, x.dtype).view(-1, cin),
+                        *(w.to(x.dtype) for w in rest)]
         with warnings.catch_warnings():
             warnings.filterwarnings("ignore", message=_UNFLATTENED)
             out = torch.lstm(x, (h0, h0), weights, True, 1, 0.0, train, True,
-                             True)[0]
+                             False)[0]
     profiling.node_span(out.grad_fn, "tfgridnet.rnn_bwd")
     return out
 
 
 class GridNetBlock(nn.Module):
+    """[B, T, F, D] -> [B, T, F, D]."""
+
     def __init__(self, cfg: TFGridNetConfig, freqs: int):
         super().__init__()
         d, i, j = cfg.emb_dim, cfg.emb_ks, cfg.emb_hs
@@ -139,7 +291,7 @@ class GridNetBlock(nn.Module):
         self.emb_ks, self.emb_hs, self.n_head = i, j, heads
         for side in ("intra", "inter"):
             self.add_module(f"{side}_norm", LayerNormalization4D(d, cfg.eps))
-            self.add_module(f"{side}_rnn", nn.LSTM(d * i, h, 1, batch_first=True,
+            self.add_module(f"{side}_rnn", nn.LSTM(d * i, h, 1,
                                                    bidirectional=True))
             self.add_module(f"{side}_linear",
                             nn.ConvTranspose1d(2 * h, d, i, stride=j))
@@ -150,48 +302,54 @@ class GridNetBlock(nn.Module):
                             _projection(d, d // heads, freqs, cfg.eps))
         self.attn_concat_proj = _projection(d, d, freqs, cfg.eps)
 
-    def _sequence(self, rnn, linear, u):
-        """[N, D, L] -> unfold -> BLSTM -> deconv -> [N, D, L]."""
-        u = u.unfold(2, self.emb_ks, self.emb_hs)            # [N, D, L', I]
-        n, d, steps, k = u.shape
-        u = u.permute(0, 2, 1, 3).reshape(n, steps, d * k)   # [N, L', D*I]
-        y = _blstm(rnn, u, self.training).transpose(1, 2)    # [N, 2H, L']
-        return F.conv_transpose1d(y, linear.weight.to(y.dtype),
-                                  linear.bias.to(y.dtype), stride=self.emb_hs)
+    def _module(self, side: str, h, perm):
+        """h + deconv(BLSTM(unfold(LN4D(h)))) along the axis ``perm`` puts
+        first."""
+        i, j = self.emb_ks, self.emb_hs
+        u = getattr(self, f"{side}_norm")(h, perm, i, j)
+        y = _blstm(getattr(self, f"{side}_rnn"), u, self.training, i)
+        n1, n2 = (h.shape[p] for p in perm[1:3])
+        profiling.count(RELAYOUT, u.numel() * u.element_size()
+                        + (h.numel() + u.numel()) * 4
+                        + (h.numel() * h.element_size()
+                           if h.dtype != torch.float32 else 0))
+        return _deconv(getattr(self, f"{side}_linear"),
+                       y.view(y.shape[0], n1, n2, -1), h, perm, j)
 
-    def forward(self, x):
-        b, d, t0, f0 = x.shape
+    def forward(self, h):
+        _, t0, f0, _ = h.shape
         i, j = self.emb_ks, self.emb_hs
         t = math.ceil((t0 - i) / j) * j + i
         f = math.ceil((f0 - i) / j) * j + i
-        if (t, f) != (t0, f0):
-            x = F.pad(x, (0, f - f0, 0, t - t0))
+        padded = (t, f) != (t0, f0)
+        if padded:
+            h = F.pad(h, (0, 0, 0, f - f0, 0, t - t0))
+            profiling.count(RELAYOUT, h.numel() * h.element_size())
         with profiling.span("tfgridnet.intra"):
-            u = self.intra_norm(x).transpose(1, 2).reshape(b * t, d, f)
-            y = self._sequence(self.intra_rnn, self.intra_linear, u)
-            x = x + y.view(b, t, d, f).transpose(1, 2)
+            h = self._module("intra", h, ALONG_F)
         with profiling.span("tfgridnet.inter"):
-            u = self.inter_norm(x).permute(0, 3, 1, 2).reshape(b * f, d, t)
-            y = self._sequence(self.inter_rnn, self.inter_linear, u)
-            x = x + y.view(b, f, d, t).permute(0, 2, 3, 1)
-        x = x[..., :t0, :f0]
+            h = self._module("inter", h, ALONG_T)
+        if padded:
+            h = h[:, :t0, :f0].contiguous()
+            profiling.count(RELAYOUT, h.numel() * h.element_size())
         with profiling.span("tfgridnet.attn"):
-            return x + self._attention(x)
+            return h + self._attention(h)
 
-    def _attention(self, x):
-        b, _, t, f = x.shape
-        heads = range(self.n_head)
-        q, k, v = (torch.cat([_project(getattr(self, f"attn_conv_{w}_{h}"), x)
-                              for h in heads])
-                   for w in "QKV")                          # [L*B, C, T, F]
-        c = v.shape[1]
-        q, k, v = (z.transpose(1, 2).flatten(2) for z in (q, k, v))
+    def _attention(self, h):
+        b, t, f, _ = h.shape
+        heads = self.n_head
+        q, k, v = (torch.cat([_project(getattr(self, f"attn_conv_{w}_{i}"), h)
+                              for i in range(heads)]).flatten(2)
+                   for w in "QKV")                   # [L*B, T, F*C]
+        c = v.shape[-1] // f
         scores = torch.matmul(q, k.transpose(1, 2)).float()  # [L*B, T, T]
         attn = torch.softmax(scores / math.sqrt(q.shape[-1]), dim=-1)
-        out = torch.matmul(attn.to(v.dtype), v)               # [L*B, T, C*F]
-        out = out.view(self.n_head, b, t, c, f).permute(1, 0, 3, 2, 4)
-        return _project(self.attn_concat_proj,
-                        out.reshape(b, self.n_head * c, t, f))
+        out = torch.matmul(attn.to(v.dtype), v)               # [L*B, T, F*C]
+        out = out.view(heads, b, t, f, c).permute(1, 2, 3, 0, 4)
+        out = out.reshape(b, t, f, heads * c)
+        profiling.count(RELAYOUT, (q.numel() + k.numel() + v.numel()
+                                   + out.numel()) * out.element_size())
+        return _project(self.attn_concat_proj, out)
 
 
 class TFGridNet(nn.Module):
@@ -219,17 +377,21 @@ class TFGridNet(nn.Module):
                 or mixture.shape[3] != self.freqs):
             raise ValueError(f"expected complex [B, C, T, {self.freqs}], got "
                              f"{mixture.dtype} {tuple(mixture.shape)}")
-        dt = self.dtype
+        dt, cl = self.dtype, torch.channels_last
         re, im = mixture.real.float(), mixture.imag.float()
         ms = (re.square() + im.square()).mean((1, 2, 3), keepdim=True)
         rms = torch.sqrt(ms.clamp_min(MS_FLOOR))               # [B, 1, 1, 1]
-        x = (torch.cat([re, im], dim=1) / rms).to(dt)
+        x = (torch.cat([re, im], dim=1) / rms).to(dt, memory_format=cl)
         conv, norm = self.conv
-        x = F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt), padding=1)
-        x = F.group_norm(x.float(), 1, norm.weight, norm.bias, norm.eps).to(dt)
+        x = F.conv2d(x, conv.weight.to(dt, memory_format=cl), conv.bias.to(dt),
+                     padding=1)
+        h = x.permute(0, 2, 3, 1).contiguous()                 # [B, T, F, D]
+        # GroupNorm with one group: over (T, F, D) of each item
+        h = _norm(h, (1, 2, 3), norm.weight, norm.bias, norm.eps).to(dt)
         for block in self.blocks:
-            x = block(x)
-        y = F.conv_transpose2d(x, self.deconv.weight.to(dt),
+            h = block(h)
+        y = F.conv_transpose2d(h.permute(0, 3, 1, 2),
+                               self.deconv.weight.to(dt, memory_format=cl),
                                self.deconv.bias.to(dt), padding=1).float()
         b, _, t, f = y.shape
         y = y.view(b, self.num_spks, 2, t, f) * rms[..., None]

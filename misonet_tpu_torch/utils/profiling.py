@@ -7,7 +7,9 @@ prints (trainer.py:216-221).  Here:
   ``count(name, n)`` counts an event (``sync``: the host waits for the card
   to drain; ``h2d``: a copy of host memory to the card; ``decode.capture``,
   ``decode.replay``: the MISO1 decode's CUDA graph captured, replayed;
-  ``tfgridnet.rnn_steps``: a BLSTM call's sequence length), and
+  ``tfgridnet.rnn_steps``: a BLSTM call's sequence length;
+  ``tfgridnet.relayout_bytes``: the bytes TF-GridNet's layout work writes
+  in a forward), and
   ``node_span(node, name)`` marks an autograd node's run in the backward,
   on the thread that runs it.  All are gated on
   one flag, ``torch.autograd.profiler._is_profiler_enabled``, which is true

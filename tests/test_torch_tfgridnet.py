@@ -5,7 +5,10 @@ its LSTM written as its own recurrence) on seeded weights, at a tiny plan
 forward in float32 and bfloat16, the gradients of one uPIT loss, one wave
 train step against the reference's training step, the decode and streaming
 CSS taking the net unchanged, the YAML route through ``make_miso1``, the
-parameter count at the published widths, and the spans and counter.
+parameter count at the published widths, the spans and counters, the
+module's two layout pieces (the norm written as the BLSTM's unfolded input,
+the deconv as a matmul and an overlap-add) against ``F.unfold`` and
+``F.conv_transpose1d``, and a bound on the copies one block makes.
 
 Tolerances: float32 within 1e-5 of the reference's max-abs (the two differ
 in the order of sums only); bfloat16 within 4 % in relative L2 (each stored
@@ -13,9 +16,10 @@ activation rounds to 8 bits of mantissa, 2^-9 relative; the tiny net chains
 about 60 such roundings, through residuals that keep them from cancelling:
 0.9-1.2 % measured over seven seeds).
 
-Card only (marker ``cuda``): cuDNN's LSTM, as the port calls it, against
-the reference's recurrence at the cell's widths (192 in, 192 units each way)
-on a short sequence, forward and backward; run them on the card with
+Card only (marker ``cuda``): cuDNN's LSTM, as the port calls it
+(sequence-major, its input's four taps tap-major), against the reference's
+recurrence at the cell's widths (192 in, 192 units each way) on a short
+sequence, forward and backward; run them on the card with
 ``python -m pytest --noconftest tests/test_torch_tfgridnet.py -m cuda``.
 """
 
@@ -27,6 +31,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch.nn.functional as F  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from benchmark.reference import tfgridnet as ref  # noqa: E402
@@ -38,7 +43,9 @@ from misonet_tpu_torch.inference.css import StreamingCSS  # noqa: E402
 from misonet_tpu_torch.inference.separate import make_full_array_decode  # noqa: E402
 from misonet_tpu_torch.losses import loss_upit  # noqa: E402
 from misonet_tpu_torch.models import TFGridNet, make_miso1  # noqa: E402
-from misonet_tpu_torch.models.tfgridnet import _blstm  # noqa: E402
+from misonet_tpu_torch.models.tfgridnet import (ALONG_F, ALONG_T,  # noqa: E402
+                                                GridNetBlock, _blstm, _deconv,
+                                                _NormUnfold, init_parameters)
 from misonet_tpu_torch.train import (create_train_state, make_optimizer,  # noqa: E402
                                      make_separate_wave_train_step)
 from misonet_tpu_torch.utils import profiling  # noqa: E402
@@ -226,10 +233,29 @@ def test_parameter_count_at_published_widths():
         assert json.load(f)["params_per_net"]["miso1"] == 8_244_130
 
 
+def _relayout_bytes(b, t, f, plan=PLAN, freqs=FREQS, elem=4):
+    """The bytes one forward's layout work writes at [B, T, F] in float32,
+    from the shapes: per module the gather of the BLSTM's input [L', N, I*D]
+    and the overlap-add's float32 accumulator [B, T, F, D] plus its taps
+    (as many elements as the gather); per block the attention's Q, K, V
+    stacked by heads and the heads' output relaid into channels."""
+    d, i = plan["emb_dim"], plan["emb_ks"]
+    heads = plan["attn_n_head"]
+    e = math.ceil(plan["attn_approx_qk_dim"] / freqs)
+    x = b * t * f * d
+    total = 0
+    for steps, n in ((f, b * t), (t, b * f)):          # intra, then inter
+        u = (steps - i + 1) * n * i * d
+        total += u * elem + (x + u) * 4
+    total += (2 * heads * b * t * f * e + 2 * x) * elem
+    return plan["n_layers"] * total
+
+
 def test_spans_and_rnn_steps_counter():
     """Under a profiler: each block's three spans, a ``tfgridnet.rnn`` span
-    a BLSTM call and a ``tfgridnet.rnn_bwd`` span its backward, and the
-    counter adding each call's sequence length: n_layers x (F' + T')."""
+    a BLSTM call and a ``tfgridnet.rnn_bwd`` span its backward, the counter
+    adding each call's sequence length: n_layers x (F' + T'), and the
+    relayout counter at its value from the shapes."""
     port, _, _ = _pair()
     x = _mix(t=20)
     profiling.reset()
@@ -243,7 +269,107 @@ def test_spans_and_rnn_steps_counter():
                     ("tfgridnet.rnn_bwd", 4)):
         assert names.count(name) == n, name
     assert rec["counts"]["tfgridnet.rnn_steps"] == 2 * ((17 - 3) + (20 - 3))
+    assert rec["counts"]["tfgridnet.relayout_bytes"] == _relayout_bytes(2, 20, 17)
     assert all(s.end_ns >= s.start_ns > 0 for s in rec["spans"])
+
+
+def _sequences(x, perm):
+    """[B, T, F, C] -> [N, C, S]: the sequences along the axis ``perm``
+    puts first, as the reference lays them out."""
+    seq = x.permute(perm)                                  # [S, N1, N2, C]
+    return seq.flatten(1, 2).permute(1, 2, 0)
+
+
+@pytest.mark.parametrize("stride,t0,f0", [(1, 9, 7), (2, 10, 8), (2, 9, 7)],
+                         ids=["J1", "J2", "J2-padded"])
+@pytest.mark.parametrize("perm", [ALONG_F, ALONG_T], ids=["along_F", "along_T"])
+def test_unfold_and_deconv_match_unfold_and_conv_transpose(stride, t0, f0, perm):
+    """The module's two layout pieces at small widths in float32, forward
+    and every gradient within 1e-6 of the reference's max-abs: the norm's
+    last op written as the BLSTM's unfolded input (``_NormUnfold``) against
+    ``xhat * gamma + beta`` through ``F.unfold``, and the deconv as one
+    matmul and an overlap-add (``_deconv``) against ``h +
+    F.conv_transpose1d``; T and F padded as the block pads them."""
+    d, taps, hid = 3, 4, 2
+    g = torch.Generator().manual_seed(stride * 100 + t0)
+    t = math.ceil((t0 - taps) / stride) * stride + taps
+    f = math.ceil((f0 - taps) / stride) * stride + taps
+    xhat = F.pad(torch.randn(2, t0, f0, d, generator=g),
+                 (0, 0, 0, f - f0, 0, t - t0)).requires_grad_()
+    gamma, beta = (torch.randn(d, generator=g).requires_grad_() for _ in "gb")
+    u = _NormUnfold.apply(xhat, gamma, beta, perm, taps, stride, torch.float32)
+    seq = _sequences(xhat * gamma + beta, perm)            # [N, D, S]
+    want = F.unfold(seq[..., None], (taps, 1), stride=(stride, 1))
+    n, steps = seq.shape[0], want.shape[-1]
+    # F.unfold's columns are channel-major (c * I + k); the BLSTM's tap-major
+    want = want.view(n, d, taps, steps).permute(3, 0, 2, 1).reshape(steps, n, -1)
+    assert u.shape == want.shape
+    cot = torch.randn(want.shape, generator=g)
+    leaves = (xhat, gamma, beta)
+    got_g = torch.autograd.grad((u * cot).sum(), leaves)
+    want_g = torch.autograd.grad((want * cot).sum(), leaves)
+    for a, b in zip((u, *got_g), (want, *want_g)):
+        assert float((a - b).detach().abs().max()) <= 1e-6 * float(b.abs().max())
+
+    linear = torch.nn.ConvTranspose1d(2 * hid, d, taps, stride=stride)
+    h = torch.randn(2, t, f, d, generator=g, requires_grad=True)
+    y = torch.randn(steps, *(h.shape[p] for p in perm[1:3]), 2 * hid,
+                    generator=g, requires_grad=True)
+    got = _deconv(linear, y, h, perm, stride)
+    conv = linear(y.flatten(1, 2).permute(1, 2, 0))         # [N, D, S]
+    want = h + conv.permute(2, 0, 1).view(
+        [h.shape[p] for p in perm]).permute([perm.index(k) for k in range(4)])
+    cot = torch.randn(h.shape, generator=g)
+    leaves = (y, h, linear.weight, linear.bias)
+    got_g = torch.autograd.grad((got * cot).sum(), leaves)
+    want_g = torch.autograd.grad((want * cot).sum(), leaves)
+    for a, b in zip((got, *got_g), (want, *want_g)):
+        assert float((a - b).detach().abs().max()) <= 1e-6 * float(b.abs().max())
+
+
+# aten::copy_ elements written by one GridNetBlock's forward and backward at
+# TINY's widths, B = 2, T = 20, F = 17, counted by ``_copied_elements``: the
+# parent commit's block, which took [B, D, T, F] and laid it out for each
+# module and for cuDNN's calls, wrote 231,695 (42.6 x numel(x)).
+PARENT_COPIED = 231_695
+# copies that only the CPU's kernels make, left out on both sides: its
+# matmul and 1x1 conv write the bias into the output before they accumulate
+# (the card's GEMM adds it in its epilogue), and its LSTM's backward makes
+# each direction's slice of the gradient contiguous (cuDNN reads it whole)
+CPU_ONLY = ("aten::addmm", "aten::_slow_conv2d_forward",
+            "aten::mkldnn_rnn_layer_backward")
+
+
+def _copied_elements(run) -> int:
+    """Elements written by ``aten::copy_`` while ``run()`` runs, forward and
+    backward, outside the ops in ``CPU_ONLY``."""
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        run()
+    total = 0
+    for ev in prof.events():
+        if ev.name != "aten::copy_":
+            continue
+        up, inside = ev.cpu_parent, False
+        while up is not None:
+            inside |= up.name in CPU_ONLY
+            up = up.cpu_parent
+        if not inside:
+            total += math.prod(ev.input_shapes[0])
+    return total
+
+
+def test_block_copies_at_most_a_third_of_parent():
+    """One GridNetBlock's forward and backward at TINY's widths with B = 2
+    copies at most a third of what the parent commit's block copied
+    (``PARENT_COPIED``); this tree's block writes 62,343 (11.5 x numel(x))."""
+    blk = GridNetBlock(TINY, FREQS)
+    init_parameters(blk, torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 20, FREQS, TINY.emb_dim, generator=g, requires_grad=True)
+    cot = torch.randn(x.shape, generator=g)
+    copied = _copied_elements(lambda: (blk(x) * cot).sum().backward())
+    assert x.grad is not None
+    assert copied <= PARENT_COPIED / 3, copied
 
 
 # --- on the card -----------------------------------------------------------
@@ -261,7 +387,7 @@ def cuda():
 def _lstm_pair(device, seed=0):
     """The port's ``nn.LSTM`` and the reference's ``BLSTM`` at the cell's
     widths (192 inputs, 192 units), holding the same seeded weights."""
-    lstm = torch.nn.LSTM(192, 192, 1, batch_first=True, bidirectional=True)
+    lstm = torch.nn.LSTM(192, 192, 1, bidirectional=True)
     rec = ref.BLSTM(192, 192)
     sd = ref.make_state_dict(rec, seed, "cpu")
     rec.load_state_dict(sd)
@@ -274,16 +400,20 @@ def _lstm_pair(device, seed=0):
                                        (torch.bfloat16, 0.03)])
 def test_cudnn_lstm_matches_recurrence(cuda, dtype, tol):
     """Forward, the input's gradient and each weight's gradient of the
-    port's BLSTM call (cuDNN) against the reference's recurrence in float32,
-    on 64 sequences of 24 steps; bfloat16 within 3 % in relative L2 (its
-    inputs, weights and states round at 2^-9; 24 steps)."""
+    port's BLSTM call (cuDNN, sequence-major, the input's 4 taps of 48
+    channels tap-major as the modules give it) against the reference's
+    recurrence in float32 (batch-first, channel-major), on 64 sequences of
+    24 steps; bfloat16 within 3 % in relative L2 (its inputs, weights and
+    states round at 2^-9; 24 steps)."""
     lstm, rec = _lstm_pair(cuda)
     g = torch.Generator(device=cuda).manual_seed(1)
     x = torch.randn(64, 24, 192, device=cuda, generator=g)
     xa = x.to(dtype).detach().requires_grad_()
     xb = x.detach().clone().requires_grad_()
-    got = _blstm(lstm, xa, True)
+    seq = xa.view(64, 24, 48, 4).transpose(2, 3).reshape(64, 24, 192)
+    got = _blstm(lstm, seq.transpose(0, 1).contiguous(), True, 4)
     assert "CudnnRnn" in got.grad_fn.name()
+    got = got.transpose(0, 1)
     want = rec(xb)
     w = torch.randn(want.shape, device=cuda, generator=g)
     (got.float() * w).sum().backward()
